@@ -1,0 +1,337 @@
+"""The two eval-path kernels of the port, their plain versions and counters.
+
+K1 :func:`fused_swin_block` — one whole Swin block over partitioned, rolled
+tokens (LN1 -> qkv -> window attention with the gate-blended rel/frag bias
+and the seam mask -> proj -> +res -> LN2 -> MLP(GELU) -> +res).  Replaces
+``fused_swin_block`` of ``kvq_tpu/ops/window_attention.py``; on the card it
+is a sequence of this repository's CUDA kernels (``csrc/swin_block.cu``:
+a LayerNorm pass, a pipelined WMMA GEMM with bias/GELU/residual epilogues,
+and the flash window attention of ``csrc/flash_attention.cuh``).
+
+K2 :func:`flash_attention_nobias_cl` — batched multi-head attention with no
+bias or mask in channel layout, the CDM attentions.  Replaces
+``flash_attention_nobias_cl``; on the card ``csrc/nobias_attention.cu``.
+
+Each wrapper takes its plain PyTorch version for tensors that lie on the CPU
+and launches its kernel for CUDA tensors, raising on anything the kernel
+does not take; there is no fallback.  ``launches`` on each wrapper counts
+kernel launches (one per call that reaches the card).
+
+The plain versions compute the XLA composition of the JAX package (row-max
+softmax, exact-erf GELU): the TPU kernels' fold-softmax, p-clamp and
+polynomial GELU are TPU choices and are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..nn.layers import LN_EPS, layer_norm
+from . import build
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowGeometry:
+    batch: int
+    dims: tuple[int, int, int]        # padded token volume (Dp, Hp, Wp)
+    window: tuple[int, int, int]      # effective window (wd, wh, ww)
+    shift: tuple[int, int, int]       # effective shift
+    fragments: tuple[int, int, int]   # fragment grid (1, 7, 7)
+    num_heads: int
+    head_dim: int
+    use_frag: bool
+
+    @property
+    def n_tokens(self) -> int:
+        wd, wh, ww = self.window
+        return wd * wh * ww
+
+    @property
+    def wgrid(self) -> tuple[int, int, int]:
+        return tuple(d // w for d, w in zip(self.dims, self.window))
+
+    @property
+    def n_windows(self) -> int:
+        gd, gh, gw = self.wgrid
+        return gd * gh * gw
+
+
+@functools.lru_cache(maxsize=64)
+def window_token_ids(dims, window, shift, fragments):
+    """Per-window token ids of one batch element: ``(fid (nW, N, 3),
+    seg (nW, N))`` — the fragment id of each token's pre-roll coordinate
+    on every axis, ``((g + shift) mod Dim) * F // Dim``, and its seam
+    segment ``segd*9 + segh*3 + segw`` in the rolled frame."""
+    wd, wh, ww = window
+    n = wd * wh * ww
+    tok = np.arange(n)
+    offs = (tok // (wh * ww), (tok // ww) % wh, tok % ww)
+    fids, segs = [], []
+    for ax in range(3):
+        dim, w, s, f = dims[ax], window[ax], shift[ax], fragments[ax]
+        g = np.arange(dim // w)[:, None] * w + offs[ax][None, :]
+        fids.append(((g + s) % dim) * f // dim)
+        segs.append(np.where(g < dim - w, 0, np.where(g < dim - s, 1, 2)))
+    fd, fh, fw = (a.reshape(a.shape[0], 1, 1, n) if i == 0 else
+                  a.reshape(1, a.shape[0], 1, n) if i == 1 else
+                  a.reshape(1, 1, a.shape[0], n)
+                  for i, a in enumerate(fids))
+    fid = np.stack(np.broadcast_arrays(fd, fh, fw), axis=-1).reshape(-1, n, 3)
+    sd, sh, sw = segs
+    seg = (sd[:, None, None, :] * 9 + sh[None, :, None, :] * 3
+           + sw[None, None, :, :]).reshape(-1, n)
+    return fid.astype(np.int64), seg.astype(np.int64)
+
+
+def gate_and_mask(geo: WindowGeometry, device):
+    """(nW, N, N) fragment gate (the unclamped sum of |Δ fragment id| — a
+    reference quirk: it can exceed 1) and additive seam mask (-100 across
+    shifted-window seams, or None when unshifted), built on ``device``."""
+    fid, seg = window_token_ids(geo.dims, geo.window, geo.shift, geo.fragments)
+    fid = torch.as_tensor(fid, device=device, dtype=torch.float32)
+    gate = 0
+    for a in range(3):
+        gate = gate + (fid[:, :, None, a] - fid[:, None, :, a]).abs()
+    mask = None
+    if any(geo.shift):
+        seg = torch.as_tensor(seg, device=device)
+        mask = torch.where(seg[:, :, None] != seg[:, None, :], -100.0, 0.0)
+    return gate, mask
+
+
+def window_attention_plain(q, k, v, rel_bias, frag_bias, gate, mask, scale):
+    """XLA composition of window attention (nn/swin.py WindowAttention3D).
+    q/k/v: (B, nW, h, N, hd); rel/frag: (h, N, N) f32; gate/mask:
+    (nW, N, N) or None.  Returns (B, nW, h, N, hd) in float32."""
+    attn = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    if frag_bias is not None and gate is not None:
+        g = gate[:, None]
+        bias = rel_bias[None] * g + frag_bias[None] * (1.0 - g)
+    else:
+        bias = rel_bias[None]
+    attn = attn + bias
+    if mask is not None:
+        attn = attn + mask[:, None]
+    p = attn.softmax(dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float())
+
+
+def _linear(x, w, b):
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def fused_swin_block_plain(x, params, rel_bias, frag_bias, geo, scale=None):
+    """Plain version of K1: SwinBlock3D's XLA path on (BW, N, C)
+    partitioned, rolled tokens.  ``params`` holds the block's weights under
+    the JAX kernel's keys (norm1_scale, qkv_w, ...), each weight in
+    nn.Linear's (out, in) layout."""
+    BW, N, C = x.shape
+    h = geo.num_heads
+    hd = C // h
+    scale = hd ** -0.5 if scale is None else scale
+    nW = geo.n_windows
+    B = BW // nW
+    y = layer_norm(x, params["norm1_scale"], params["norm1_bias"])
+    qkv = _linear(y, params["qkv_w"], params["qkv_b"])
+    qkv = qkv.view(B, nW, N, 3, h, hd).permute(3, 0, 1, 4, 2, 5)
+    gate, mask = gate_and_mask(geo, x.device)
+    att = window_attention_plain(
+        qkv[0], qkv[1], qkv[2], rel_bias.float(),
+        None if frag_bias is None else frag_bias.float(),
+        gate if geo.use_frag else None, mask, scale,
+    )
+    att = att.transpose(2, 3).reshape(BW, N, C).to(x.dtype)
+    x1 = x + _linear(att, params["proj_w"], params["proj_b"])
+    y2 = layer_norm(x1, params["norm2_scale"], params["norm2_bias"])
+    hmid = F.gelu(_linear(y2, params["fc1_w"], params["fc1_b"]))
+    return x1 + _linear(hmid, params["fc2_w"], params["fc2_b"])
+
+
+def attention_nobias_plain(q, k, v, num_heads: int, scale: float):
+    """Plain version of K2: CrossAttention's einsum path (nn/cdm.py)
+    with an explicit scale.  q (X, N, C), k/v (X, M, C) -> (X, N, C)."""
+    X, N, C = q.shape
+    hd = C // num_heads
+
+    def heads(t):
+        return t.reshape(X, -1, num_heads, hd).transpose(1, 2)
+
+    s = torch.matmul(heads(q).float(), heads(k).float().transpose(-1, -2))
+    p = (s * scale).softmax(dim=-1).to(v.dtype)
+    out = torch.matmul(p.float(), heads(v).float()).to(q.dtype)
+    return out.transpose(1, 2).reshape(X, N, C)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+
+
+def _check_cuda(name: str, device, **tensors):
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+_BLOCK_KEYS = ("norm1_scale", "norm1_bias", "qkv_w", "qkv_b", "proj_w",
+               "proj_b", "norm2_scale", "norm2_bias", "fc1_w", "fc1_b",
+               "fc2_w", "fc2_b")
+
+
+def fused_swin_block(x, params, rel_bias, frag_bias, geo: WindowGeometry,
+                     scale=None):
+    """K1.  x: (BW, N, C) partitioned+rolled tokens; params as for
+    :func:`fused_swin_block_plain`; rel/frag: (h, N, N) float32 planes
+    (frag None when the stage has no fragment bias).  Returns the block
+    output (BW, N, C)."""
+    BW, N, C = x.shape
+    h, hd = geo.num_heads, geo.head_dim
+    if h * hd != C or N != geo.n_tokens or BW != geo.batch * geo.n_windows:
+        raise ValueError(f"fused_swin_block: x {tuple(x.shape)} does not "
+                         f"match {geo}")
+    if (frag_bias is not None) != geo.use_frag:
+        raise ValueError("fused_swin_block: frag_bias must be given exactly "
+                         "when geo.use_frag")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if x.device.type == "cpu":
+        return fused_swin_block_plain(x, params, rel_bias, frag_bias, geo,
+                                      scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_swin_block: unsupported device {x.device}")
+    hidden = params["fc1_w"].shape[0]
+    if x.dtype != torch.bfloat16 or any(
+        params[k].dtype != torch.bfloat16 for k in _BLOCK_KEYS
+    ):
+        raise TypeError("fused_swin_block: x and the block weights must be "
+                        "bfloat16 on CUDA")
+    if rel_bias.dtype != torch.float32 or (
+        frag_bias is not None and frag_bias.dtype != torch.float32
+    ):
+        raise TypeError("fused_swin_block: bias planes must be float32")
+    if hd not in (32, 64) or C % 8 or hidden % 8:
+        raise ValueError(f"fused_swin_block: unsupported C={C}, head_dim={hd}"
+                         f", hidden={hidden}")
+    if rel_bias.shape != (h, N, N) or (
+        frag_bias is not None and frag_bias.shape != (h, N, N)
+    ):
+        raise ValueError("fused_swin_block: bias planes must be (h, N, N)")
+    expect = {"qkv_w": (3 * C, C), "proj_w": (C, C), "fc1_w": (hidden, C),
+              "fc2_w": (C, hidden)}
+    for k, shape in expect.items():
+        if tuple(params[k].shape) != shape:
+            raise ValueError(f"fused_swin_block: {k} is "
+                             f"{tuple(params[k].shape)}, expected {shape}")
+    dev = x.device
+    _check_cuda("fused_swin_block", dev, x=x, rel_bias=rel_bias,
+                frag_bias=frag_bias, **{k: params[k] for k in _BLOCK_KEYS})
+    lib = build.load("swin_block")
+    stream = _stream(dev)
+    M = BW * N
+    p = params
+
+    def gemm(a, w, b, res, n, k, gelu):
+        out = torch.empty((M, n), dtype=torch.bfloat16, device=dev)
+        build.check(lib.kvq_gemm(
+            _ptr(a), _ptr(w), _ptr(b), _ptr(res), _ptr(out), M, n, k,
+            int(gelu), stream,
+        ), "fused_swin_block gemm")
+        return out
+
+    def norm(a, g, b):
+        out = torch.empty_like(a)
+        build.check(lib.kvq_layernorm(
+            _ptr(a), _ptr(g), _ptr(b), _ptr(out), M, C, LN_EPS, stream,
+        ), "fused_swin_block layernorm")
+        return out
+
+    ints = ctypes.c_int * 3
+    with torch.cuda.device(dev):
+        y1 = norm(x, p["norm1_scale"], p["norm1_bias"])
+        qkv = gemm(y1, p["qkv_w"], p["qkv_b"], None, 3 * C, C, False)
+        att = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
+        build.check(lib.kvq_window_attention(
+            _ptr(qkv), _ptr(rel_bias), _ptr(frag_bias), _ptr(att), BW, N, C,
+            h, ints(*geo.dims), ints(*geo.window), ints(*geo.shift),
+            ints(*geo.fragments), scale, stream,
+        ), "fused_swin_block window attention")
+        x1 = gemm(att, p["proj_w"], p["proj_b"], x, C, C, False)
+        y2 = norm(x1, p["norm2_scale"], p["norm2_bias"])
+        hmid = gemm(y2, p["fc1_w"], p["fc1_b"], None, hidden, C, True)
+        out = gemm(hmid, p["fc2_w"], p["fc2_b"], x1, C, hidden, False)
+    fused_swin_block.launches += 1
+    return out.view(BW, N, C)
+
+
+fused_swin_block.launches = 0
+
+
+def _rows(name, key, t, X, L, C):
+    if t.dim() != 3 or tuple(t.shape) != (X, L, C):
+        raise ValueError(f"{name}: {key} is {tuple(t.shape)}, expected "
+                         f"{(X, L, C)}")
+    if t.stride(2) != 1 or t.stride(0) != L * t.stride(1) or t.stride(1) % 8:
+        raise ValueError(f"{name}: {key} needs unit channel stride, a row "
+                         "stride that is a multiple of 8 and packed rows")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {key} must be 16-byte aligned")
+    return t.stride(1)
+
+
+def flash_attention_nobias_cl(q, k, v, num_heads: int, scale=None):
+    """K2.  q (X, N, C), k/v (X, M, C) -> (X, N, C); heads split along C.
+    q, k and v may be channel slices of one fused projection (row stride
+    larger than C)."""
+    X, N, C = q.shape
+    M = k.shape[1]
+    hd = C // num_heads
+    if hd * num_heads != C:
+        raise ValueError(f"flash_attention_nobias_cl: C={C} is not divisible "
+                         f"by {num_heads} heads")
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return attention_nobias_plain(q, k, v, num_heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_nobias_cl: unsupported device "
+                         f"{q.device}")
+    name = "flash_attention_nobias_cl"
+    for key, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {key} must be bfloat16 on CUDA")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {key} is on {t.device}")
+    if hd not in (32, 64):
+        raise ValueError(f"{name}: unsupported head_dim {hd}")
+    ldq = _rows(name, "q", q, X, N, C)
+    ldk = _rows(name, "k", k, X, M, C)
+    ldv = _rows(name, "v", v, X, M, C)
+    lib = build.load("nobias_attention")
+    out = torch.empty((X, N, C), dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        build.check(lib.kvq_attention_nobias(
+            _ptr(q), _ptr(k), _ptr(v), _ptr(out), X, N, M, C, num_heads,
+            ldq, ldk, ldv, scale, _stream(q.device),
+        ), name)
+    flash_attention_nobias_cl.launches += 1
+    return out
+
+
+flash_attention_nobias_cl.launches = 0
