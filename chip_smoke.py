@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the port's main path — KSVQE eval scoring — on one NVIDIA GPU.
+"""Runs the port's main paths — KSVQE eval scoring and KSVQE training — on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,12 +9,22 @@
 3. holds K1 (fused_swin_block) against its plain version at each shipped
    stage geometry, unshifted and shifted, and K2 (flash_attention_nobias_cl)
    at the nine CDM shapes, on seeded bf16 inputs;
-4. builds KSVQE + VQAHead at full width from seeded random weights in bf16,
+4. holds K4 (train_swin_block, forward and backward) at the train
+   geometries of stages 0-2 and K5 (window_attention_train, forward and
+   backward) at stage 3's, unshifted and shifted, with DropPath
+   multipliers, output and every gradient against the plain versions;
+5. builds KSVQE + VQAHead at full width from seeded random weights in bf16,
    scores a few batches of the shipped eval shapes through the evaluator
    (``inference_test``), checks finite scores and 12 K1 + 9 K2 launches per
    forward, and compares the kernel path's score with the plain path's;
-5. prints times, videos/s and a JSON line of kernel records, and as its last
-   line ``{"ok": true, "device": {...}}``.
+6. trains the same model at full width through ``Trainer`` (f32 masters,
+   bf16 compute) on seeded batches of the shipped train shapes (B=4, T=32):
+   one kernel-path step against one plain-path step from the same weights
+   and seed (loss and every gradient), then timed steps that must launch
+   K4 10 + 10 and K5 2 + 2 times each, with a finite loss, finite updated
+   parameters and a moving EMA;
+7. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
+   records, and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is absent, when the package is not
 beside this script, or when any phase fails.  Imports nothing of JAX.
@@ -44,6 +55,22 @@ PEAK_BYTES = 3.35e12
 K1_TOL = 3e-2   # x max(1, max|plain|)
 K2_TOL = 2e-2   # x max(1, max|plain|)
 SCORE_TOL = 5e-2  # kernel path vs plain path score, x max(1, |score|)
+# K4/K5 gradients against the plain backward, x the gradient's own largest
+# magnitude: up to six bf16-rounded products, and f32 atomic sums over up to
+# 512 windows and 200k rows in another order than the plain version's.
+GRAD_TOL = 5e-2
+# One kernel-path train step against one plain-path step from the same
+# weights, batch and generator: bf16 through the whole network and its
+# backward.  Loss within LOSS_TOL x max(1, |loss|); all gradients together
+# within TRAIN_GRAD_TOL of their norm; and each gradient of the Swin stages,
+# the parameters whose gradients K4 and K5 produce, within TRAIN_GRAD_TOL of
+# its own norm.  The other modules run the same plain code on both paths;
+# their gradients see the kernels only through the rounding of what flows
+# in, which cancellations amplify (the semantic FiLM's gate gradient is a
+# dot product over 384-768 channels; the head's last bias has an exactly
+# zero gradient, PLCC being shift-invariant), so they are reported.
+LOSS_TOL = 2e-2
+TRAIN_GRAD_TOL = 0.1
 
 # Shipped geometry (config/Kwai_KSVQE.yml): B=1, T=96 as one clip,
 # 9x9 fragments of 32 px, s2d-packed; Swin-T 3D, windows (8, 7, 7).
@@ -60,6 +87,18 @@ CDM = [  # (C, heads, h*w) after stages 1, 2, 3
     (768, 24, 7 * 7),
 ]
 
+# Shipped train geometry (config/Kwai_KSVQE.yml): B=4, T=32 frames, 9x9
+# fragments of 32 px, s2d-packed; the Swin stages then run at T/2 = 16.
+TRAIN_B, TRAIN_T = 4, 32
+TRAIN_STAGES = [
+    ((16, 56, 56), 96, 3, True),
+    ((16, 28, 28), 192, 6, True),
+    ((16, 14, 14), 384, 12, True),
+    ((16, 7, 7), 768, 24, False),
+]
+TRAIN_REPS = (1, 1, 3, 1)  # unshifted/shifted pairs per step: depth / 2
+TRAIN_STEPS = 3            # timed train steps after the compared one
+
 KSVQE_CONFIG = {  # the model block of config/Kwai_KSVQE.yml
     "name": "KSVQE",
     "model": {
@@ -75,6 +114,14 @@ KSVQE_CONFIG = {  # the model block of config/Kwai_KSVQE.yml
             "head": {"in_channels": 768, "hidden_channels": 64},
         }},
     },
+}
+
+
+TRAIN_CONFIG = {  # config/Kwai_KSVQE.yml's schedule, optimizer and EMA
+    **KSVQE_CONFIG,
+    "num_epochs": 50, "warmup_epochs": 2.5, "ema": True, "ema_decay": 0.999,
+    "batch_size": TRAIN_B,
+    "optimizer": {"lr": 3e-5, "wd": 0.05, "backbone_lr_mult": 1.0},
 }
 
 
@@ -116,19 +163,19 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 # kernel phases
 
 
-def block_case(stage: int, shifted: bool, gen):
+def block_case(stage: int, shifted: bool, gen, stages=STAGES, batch=1):
     import torch
 
     from kvq_tpu_torch.nn.swin import expand_bias_planes, get_window_size
     from kvq_tpu_torch.ops.window_attention import WindowGeometry
 
-    dims, C, h, use_frag = STAGES[stage]
+    dims, C, h, use_frag = stages[stage]
     win, shift = get_window_size(dims, (8, 7, 7),
                                  (4, 3, 3) if shifted else (0, 0, 0))
-    geo = WindowGeometry(batch=1, dims=dims, window=win, shift=shift,
+    geo = WindowGeometry(batch=batch, dims=dims, window=win, shift=shift,
                          fragments=(1, 7, 7), num_heads=h, head_dim=C // h,
                          use_frag=use_frag)
-    N, BW, hid = geo.n_tokens, geo.n_windows, 4 * C
+    N, BW, hid = geo.n_tokens, batch * geo.n_windows, 4 * C
     dev = "cuda"
 
     def rnd(*shape, scale=1.0):
@@ -255,6 +302,184 @@ def kernel_phase(card: str):
     return k1, k2
 
 
+def _grad_err(name, got, want):
+    """max|got - want| and its tolerance, GRAD_TOL x max|want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    tol = GRAD_TOL * max(want.float().abs().max().item(), 1e-6)
+    if not (math.isfinite(err) and err <= tol):
+        fail(f"{name}: max|d| {err} > tol {tol}")
+    return err
+
+
+def _multipliers(B, nW, gen):
+    """(B*nW,) DropPath multipliers of rate 0.1, one draw per sample."""
+    import torch
+
+    keep = torch.rand(B, generator=gen, device="cuda") < 0.9
+    return (keep.float() / 0.9).repeat_interleave(nW)
+
+
+def _agg():
+    return {"ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound": [0.0, 0.0],
+            "err": 0.0, "rows": []}
+
+
+def _add(agg, reps, ms, pms, nbytes, flops, err, lms=None):
+    agg["ms"] += reps * ms
+    agg["plain_ms"] += reps * pms
+    agg["bound"][0] += reps * nbytes / PEAK_BYTES * 1e3
+    agg["bound"][1] += reps * flops / PEAK_BF16_FLOPS * 1e3
+    agg["err"] = max(agg["err"], err)
+    if lms is not None:
+        agg["lib_ms"] += reps * lms
+
+
+def train_kernel_phase(card: str):
+    """K4 at the train geometries of stages 0-2 and K5 at stage 3's (B=4,
+    T=32), forward and backward, against their plain versions; returns
+    timing records of the calls of one train step."""
+    import torch
+    import torch.nn.functional as F
+
+    from kvq_tpu_torch.ops import train_attention as TA
+    from kvq_tpu_torch.ops.window_attention import (
+        fused_swin_block_plain, gate_and_mask)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    k4f, k4b, k5f, k5b = _agg(), _agg(), _agg(), _agg()
+    for stage in range(3):
+        for shifted in (False, True):
+            (x, params, rel, frag, geo), flops, _ = block_case(
+                stage, shifted, gen, TRAIN_STAGES, TRAIN_B)
+            BW, N, C = x.shape
+            h, nW = geo.num_heads, geo.n_windows
+            scale = geo.head_dim ** -0.5
+            dp1, dp2 = _multipliers(TRAIN_B, nW, gen), _multipliers(
+                TRAIN_B, nW, gen)
+            dout = torch.randn(x.shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            args = (x, params, rel, frag, geo, scale, dp1, dp2)
+            out = TA.train_swin_block_fwd(*args)
+            ref = fused_swin_block_plain(*args)
+            dx, g, drel, dfrag = TA.train_swin_block_bwd(*args, dout)
+            rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(*args,
+                                                                   dout)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = K1_TOL * max(1.0, ref.float().abs().max().item())
+            if not (math.isfinite(err) and err <= tol):
+                fail(f"K4 forward stage {stage} shift {geo.shift}: max|d| "
+                     f"{err}")
+            tag = f"K4 stage{stage} shift={geo.shift}"
+            gerr = {"dx": _grad_err(f"{tag} dx", dx, rdx),
+                    "drel": _grad_err(f"{tag} drel", drel, rdrel)}
+            if frag is not None:
+                gerr["dfrag"] = _grad_err(f"{tag} dfrag", dfrag, rdfrag)
+            for k in g:
+                gerr[k] = _grad_err(f"{tag} {k}", g[k].reshape(rg[k].shape),
+                                    rg[k])
+            del out, ref, dx, g, drel, dfrag, rdx, rg, rdrel, rdfrag
+            ms_f = cuda_ms(lambda: TA.train_swin_block_fwd(*args), 10)
+            pms_f = cuda_ms(lambda: fused_swin_block_plain(*args), 3)
+            ms_b = cuda_ms(lambda: TA.train_swin_block_bwd(*args, dout), 5)
+            pms_b = cuda_ms(
+                lambda: TA.train_swin_block_bwd_plain(*args, dout), 2)
+            planes = (1 + int(frag is not None)) * h * N * N * 4
+            w = 12 * C * C
+            by_f = 2 * BW * N * C * 2 + w * 2 + planes + 2 * BW * 4
+            by_b = 3 * BW * N * C * 2 + w * 2 + w * 4 + 2 * planes + 2 * BW * 4
+            bf, byf = bound_ms(by_f, flops)
+            bb, byb = bound_ms(by_b, 3 * flops)
+            reps = TRAIN_REPS[stage]
+            _add(k4f, reps, ms_f, pms_f, by_f, flops, err)
+            _add(k4b, reps, ms_b, pms_b, by_b, 3 * flops, max(gerr.values()))
+            k4f["rows"].append((stage, geo.shift, BW, C, err, ms_f, pms_f, bf,
+                                byf))
+            k4b["rows"].append((stage, geo.shift, BW, C, gerr, ms_b, pms_b,
+                                bb, byb))
+            print(f"{tag} BW={BW} C={C}: forward max|d|={err:.4g} (tol "
+                  f"{tol:.4g}) kernel {ms_f:.4f} ms, plain {pms_f:.4f} ms, "
+                  f"bound {bf:.4f} ms ({byf}); backward max|d| by grad "
+                  f"{json.dumps({k: float(f'{v:.3g}') for k, v in gerr.items()})}"
+                  f" kernel {ms_b:.4f} ms, plain {pms_b:.4f} ms, bound "
+                  f"{bb:.4f} ms ({byb}); {card}", flush=True)
+            del args, x, params, dout
+            torch.cuda.empty_cache()
+    dims, C, h, use_frag = TRAIN_STAGES[3]
+    for shift in ((0, 0, 0), (4, 0, 0)):
+        from kvq_tpu_torch.nn.swin import expand_bias_planes, get_window_size
+        from kvq_tpu_torch.ops.window_attention import WindowGeometry
+
+        win, sh = get_window_size(dims, (8, 7, 7), shift)
+        geo = WindowGeometry(batch=TRAIN_B, dims=dims, window=win, shift=sh,
+                             fragments=(1, 7, 7), num_heads=h,
+                             head_dim=C // h, use_frag=use_frag)
+        N, hd, nW = geo.n_tokens, geo.head_dim, geo.n_windows
+        BW = TRAIN_B * nW
+        scale = hd ** -0.5
+        q, k, v, dout = (torch.randn(BW, h, N, hd, generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                         for _ in range(4))
+        rel = expand_bias_planes(
+            torch.randn(15 * 13 * 13, h, generator=gen, device="cuda") * 0.5,
+            (8, 7, 7), N)
+        frag = None
+        args = (q, k, v, rel, frag, geo, scale)
+        out, lse = TA.window_attention_train_fwd(*args)
+        ref = TA.window_attention_train_plain(*args)
+        grads = TA.window_attention_train_bwd(*args, out, lse, dout)
+        want = TA.window_attention_train_bwd_plain(*args, out, dout)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = K2_TOL * max(1.0, ref.float().abs().max().item())
+        if not (math.isfinite(err) and err <= tol):
+            fail(f"K5 forward shift {sh}: max|d| {err}")
+        tag = f"K5 stage3 shift={sh}"
+        gerr = {n: _grad_err(f"{tag} {n}", a, b)
+                for n, a, b in zip(("dq", "dk", "dv", "drel"), grads, want)}
+        ms_f = cuda_ms(lambda: TA.window_attention_train_fwd(*args), 20)
+        pms_f = cuda_ms(lambda: TA.window_attention_train_plain(*args), 5)
+        ms_b = cuda_ms(lambda: TA.window_attention_train_bwd(
+            *args, out, lse, dout), 20)
+        pms_b = cuda_ms(lambda: TA.window_attention_train_bwd_plain(
+            *args, out, dout), 5)
+        # the library yardstick: SDPA on the same q, k, v with the blended
+        # bias and seam mask materialised as a float mask, forward, and its
+        # backward into q, k, v and the mask
+        _, mask = gate_and_mask(geo, "cuda")
+        bias = (rel[None].expand(nW, -1, -1, -1) if mask is None
+                else rel[None] + mask[:, None])
+        bias = (bias.repeat(TRAIN_B, 1, 1, 1).to(torch.bfloat16)
+                .requires_grad_())
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        lms_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=bias, scale=scale), 20)
+        y = F.scaled_dot_product_attention(*leaves, attn_mask=bias,
+                                           scale=scale)
+        lms_b = cuda_ms(lambda: torch.autograd.grad(
+            y, leaves + [bias], dout, retain_graph=True), 20)
+        del y, bias, leaves
+        planes = h * N * N * 4
+        flops_f = 4 * BW * h * N * N * hd
+        by_f = 4 * BW * h * N * hd * 2 + planes + BW * h * N * 4
+        by_b = 8 * BW * h * N * hd * 2 + 2 * planes + BW * h * N * 4
+        bf, byf = bound_ms(by_f, flops_f)
+        bb, byb = bound_ms(by_b, 2.5 * flops_f)
+        _add(k5f, 1, ms_f, pms_f, by_f, flops_f, err, lms_f)
+        _add(k5b, 1, ms_b, pms_b, by_b, 2.5 * flops_f, max(gerr.values()),
+             lms_b)
+        k5f["rows"].append((3, sh, BW, C, err, ms_f, pms_f, lms_f, bf, byf))
+        k5b["rows"].append((3, sh, BW, C, gerr, ms_b, pms_b, lms_b, bb, byb))
+        print(f"{tag} BW={BW} h={h}: forward max|d|={err:.4g} (tol "
+              f"{tol:.4g}) kernel {ms_f:.4f} ms, plain {pms_f:.4f} ms, sdpa "
+              f"{lms_f:.4f} ms, bound {bf:.4f} ms ({byf}); backward max|d| "
+              f"by grad {json.dumps({n: float(f'{e:.3g}') for n, e in gerr.items()})}"
+              f" kernel {ms_b:.4f} ms, plain {pms_b:.4f} ms, sdpa backward "
+              f"{lms_b:.4f} ms, bound {bb:.4f} ms ({byb}); {card}",
+              flush=True)
+    return k4f, k4b, k5f, k5b
+
+
 N_BATCHES = 8  # scored batches of each timed main-path run
 
 
@@ -277,26 +502,64 @@ def make_batch(rng, i: int) -> dict:
 
 
 def profile_forward(model, dev_batch) -> dict:
-    """Device time by kernel family over one forward (torch.profiler)."""
+    """Device time by kernel family over one eval forward."""
+    import torch
+
+    def forward():
+        with torch.no_grad():
+            model(dev_batch, reduce_scores=True)
+
+    return profile_device(forward)
+
+
+FAMILIES = ("kvq_window_attention", "kvq_attention_bwd", "kvq_gemm",
+            "kvq_layernorm", "kvq_train_other", "kvq_nobias_attention",
+            "conv (cuDNN)", "matmul (cuBLAS)", "other")
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    if "flash_attention_kernel" in name:
+        return ("kvq_window_attention" if "true" in low
+                else "kvq_nobias_attention")
+    if "attention_bwd_kernel" in name:
+        return "kvq_attention_bwd"
+    if "kvq" in name and "gemm_kernel" in name:
+        return "kvq_gemm"
+    if "kvq" in name and "layernorm" in name:
+        return "kvq_layernorm"
+    if "kvq" in name:  # column sums, row scales, the backward's D
+        return "kvq_train_other"
+    if "conv" in low or "cudnn" in low or "implicit" in low:
+        return "conv (cuDNN)"
+    if "gemm" in low or "cutlass" in low or "sm90" in low:
+        return "matmul (cuBLAS)"
+    return "other"
+
+
+def profile_device(fn) -> dict:
+    """Device time by kernel family over one call of ``fn``
+    (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with torch.no_grad():
-            model(dev_batch, reduce_scores=True)
+        fn()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     top = []
-    fam = {"kvq_window_attention": 0.0, "kvq_gemm": 0.0, "kvq_layernorm": 0.0,
-           "kvq_nobias_attention": 0.0, "conv (cuDNN)": 0.0,
-           "matmul (cuBLAS)": 0.0, "other": 0.0}
-    syncs = {}  # host waits on the card inside the forward, by API call
+    fam = {k: 0.0 for k in FAMILIES}
+    syncs = {}  # host waits on the card inside the call, by API call
     host = []   # host ops by self CPU time (profiled, so inflated)
+    launches = 0
     for evt in prof.key_averages():
         if "Synchronize" in evt.key:
             syncs[evt.key] = evt.count
+        if evt.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                       "cuLaunchKernel", "cudaLaunchKernelExC"):
+            launches += evt.count
         if getattr(evt, "device_type", None) is not None and \
                 str(evt.device_type) != "DeviceType.CUDA":
             host.append((evt.self_cpu_time_total / 1e3, evt.count,
@@ -306,30 +569,14 @@ def profile_forward(model, dev_batch) -> dict:
                      getattr(evt, "self_cuda_time_total", 0.0))
         if not us:
             continue
-        name = evt.key
-        top.append((us / 1e3, evt.count, name[:120]))
-        if "flash_attention_kernel" in name and "true" in name.lower():
-            k = "kvq_window_attention"
-        elif "flash_attention_kernel" in name:
-            k = "kvq_nobias_attention"
-        elif "gemm_kernel" in name and "kvq" in name:
-            k = "kvq_gemm"
-        elif "layernorm_kernel" in name and "kvq" in name:
-            k = "kvq_layernorm"
-        elif "conv" in name.lower() or "cudnn" in name.lower() or \
-                "implicit" in name.lower():
-            k = "conv (cuDNN)"
-        elif "gemm" in name.lower() or "cutlass" in name.lower() or \
-                "sm90" in name.lower():
-            k = "matmul (cuBLAS)"
-        else:
-            k = "other"
-        fam[k] += us / 1e3
+        top.append((us / 1e3, evt.count, evt.key[:120]))
+        fam[_family(evt.key)] += us / 1e3
     busy = sum(fam.values())
     top.sort(reverse=True)
     host.sort(reverse=True)
     return {"wall_ms": wall, "device_ms": busy, "families_ms": fam,
-            "syncs": syncs, "top_kernels": top[:15], "top_host_ops": host[:15]}
+            "syncs": syncs, "launch_calls": launches, "top_kernels": top[:15],
+            "top_host_ops": host[:15]}
 
 
 def main_path(card: str) -> dict:
@@ -454,6 +701,183 @@ def main_path(card: str) -> dict:
             "scores": scores, "plain_score": plain_score, "profile": prof}
 
 
+def make_train_batch(rng, i: int) -> dict:
+    """One train batch in the Loader's format at the shipped shapes: B=4
+    fragment mosaics of 32 frames (9x9x32 px), s2d-packed on the host, the
+    224 px resize views, labels and distortion labels."""
+    from kvq_tpu_torch.data.fragments import s2d_pack
+
+    frags = [s2d_pack(rng.standard_normal((TRAIN_T, 288, 288, 3),
+                                          dtype=np.float32))
+             for _ in range(TRAIN_B)]
+    return {
+        "fragment": np.stack(frags),                        # (4,16,72,72,96)
+        "resize_video": rng.standard_normal((TRAIN_B, TRAIN_T, 224, 224, 3),
+                                            dtype=np.float32),
+        "label": rng.standard_normal(TRAIN_B).astype(np.float32),
+        "dis_label": np.asarray([(i + j) % 3 for j in range(TRAIN_B)],
+                                np.int32),
+    }
+
+
+def train_counts() -> dict:
+    from kvq_tpu_torch.ops import train_attention as TA
+    from kvq_tpu_torch.ops import window_attention as WA
+
+    return {"train_swin_block": TA.train_swin_block.launches,
+            "train_swin_block_bwd": TA.train_swin_block_bwd.launches,
+            "window_attention_train": TA.window_attention_train.launches,
+            "window_attention_train_bwd":
+                TA.window_attention_train_bwd.launches,
+            "fused_swin_block": WA.fused_swin_block.launches,
+            "flash_attention_nobias_cl":
+                WA.flash_attention_nobias_cl.launches}
+
+
+def reset_counts() -> None:
+    from kvq_tpu_torch.ops import train_attention as TA
+    from kvq_tpu_torch.ops import window_attention as WA
+
+    for fn in (TA.train_swin_block, TA.train_swin_block_bwd,
+               TA.window_attention_train, TA.window_attention_train_bwd,
+               WA.fused_swin_block, WA.flash_attention_nobias_cl):
+        fn.launches = 0
+
+
+def train_path(card: str) -> dict:
+    """KSVQE training at full width through Trainer (B=4, T=32)."""
+    import torch
+
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(1)
+    batches = [make_train_batch(rng, i) for i in range(TRAIN_STEPS + 1)]
+    t0 = time.time()
+    tk = Trainer(TRAIN_CONFIG, device="cuda", seed=0, steps_per_epoch=100)
+    n_params = sum(p.numel() for p in tk.params)
+    n_train = sum(p.numel() for p in tk.params if p.requires_grad)
+    print(f"train model: KSVQE + VQAHead, {n_params} parameters ({n_train} "
+          f"trainable; CLIP except its adapters and CONTRIQUE frozen), f32 "
+          f"masters, bf16 compute; built in {time.time() - t0:.1f} s",
+          flush=True)
+    ema0 = [e.clone() for e in tk.ema]
+
+    # one kernel-path step against one plain-path step: same weights, batch
+    # and generator seed, so the same QRS noise, DropPath and dropout draws
+    plain_cfg = json.loads(json.dumps(TRAIN_CONFIG))
+    plain_cfg["model"]["args"]["KSVQE"]["backbone"]["use_pallas"] = False
+    tp = Trainer(plain_cfg, device="cuda", seed=0, steps_per_epoch=100)
+    aux_k = tk.train_step(batches[0])
+    aux_p = tp.train_step(batches[0])
+    dl = abs(aux_k["total_loss"] - aux_p["total_loss"])
+    ltol = LOSS_TOL * max(1.0, abs(aux_p["total_loss"]))
+    rows, sq_d, sq_p = [], 0.0, 0.0
+    for (name, pk), pp in zip(tk.model.named_parameters(), tp.params):
+        if pk.grad is None:
+            continue
+        gk, gp = pk.grad.float(), pp.grad.float()
+        d, n = (gk - gp).norm().item(), gp.norm().item()
+        sq_d, sq_p = sq_d + d * d, sq_p + n * n
+        rows.append((d, n, gp.numel(), name))
+    total = math.sqrt(sq_d / max(sq_p, 1e-30))
+    rel = sorted(((d / max(n, 1e-30), d, n, k, nm) for d, n, k, nm in rows),
+                 reverse=True)
+    checked = [r for r in rel if r[4].startswith("KSVQE_backbone.layers.")]
+    worst, _, _, _, worst_name = checked[0]
+
+    def show(rs):
+        return [(float(f"{r:.3g}"), float(f"{d:.3g}"), float(f"{n:.3g}"), k,
+                 nm) for r, d, n, k, nm in rs[:6]]
+
+    print(f"train step, kernel path vs plain path: loss {aux_k} vs {aux_p} "
+          f"(|d| {dl:.4g}, tol {ltol:.4g}); {len(rows)} gradients, all "
+          f"together ||g_k - g_p|| / ||g_p|| = {total:.4g} (tol "
+          f"{TRAIN_GRAD_TOL}); the {len(checked)} Swin-stage gradients, "
+          f"worst (rel, |d|, |g_p|, numel, name): {show(checked)} (tol "
+          f"{TRAIN_GRAD_TOL}); all gradients, worst: {show(rel)}",
+          flush=True)
+    if not (math.isfinite(aux_k["total_loss"]) and dl <= ltol):
+        fail("kernel-path train loss disagrees with the plain path")
+    if not (math.isfinite(total) and total <= TRAIN_GRAD_TOL):
+        fail("kernel-path gradients disagree with the plain path")
+    if not (math.isfinite(worst) and worst <= TRAIN_GRAD_TOL):
+        fail(f"kernel-path gradient of {worst_name} disagrees with the "
+             "plain path")
+    del tp
+    torch.cuda.empty_cache()
+
+    # timed steps through train_epoch (worker-thread pre-cast, side-stream
+    # copies), the counts read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    last = tk.train_epoch(batches[1:])
+    wall = time.perf_counter() - t0
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = TRAIN_STEPS
+    want = {"train_swin_block": 10 * steps, "train_swin_block_bwd": 10 * steps,
+            "window_attention_train": 2 * steps,
+            "window_attention_train_bwd": 2 * steps,
+            "fused_swin_block": 0, "flash_attention_nobias_cl": 0}
+    print(f"train path: {steps} steps in {wall:.3f} s = {steps / wall:.3f} "
+          f"steps/s = {steps * TRAIN_B / wall:.3f} videos/s (B={TRAIN_B}, "
+          f"T={TRAIN_T}); last losses {last}; launches {counts}; peak "
+          f"memory {peak / 2 ** 30:.3f} GiB; {card}", flush=True)
+    if counts != want:
+        fail(f"expected 10 + 10 K4 and 2 + 2 K5 launches per step and no "
+             f"K1/K2, got {counts}")
+    if not math.isfinite(last["total_loss"]):
+        fail(f"train loss not finite: {last}")
+    norms = torch.stack(torch._foreach_norm(tk.params))
+    if not bool(torch.isfinite(norms).all()):
+        fail("updated parameters are not finite")
+    moved = max((e - e0).abs().max().item()
+                for e, e0, p in zip(tk.ema, ema0, tk.params)
+                if p.requires_grad)
+    if not moved > 0:
+        fail("the EMA did not move")
+    print(f"updated parameters finite; EMA moved by up to {moved:.3g}",
+          flush=True)
+    del ema0
+
+    # a device-resident step, timed and profiled
+    _, host = tk._prepare(batches[1])
+    dev = {k: v.cuda() for k, v in host.items()}
+    step_ms = cuda_ms(lambda: tk._step(dev), 3)
+    dispatch = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tk._step(dev)
+        dispatch.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    dispatch_ms = sorted(dispatch)[1]
+    profile_device(lambda: tk._step(dev))  # profiler warm-up
+    prof = profile_device(lambda: tk._step(dev))
+    e2e_ms = wall / steps * 1e3
+    idle_step = 1.0 - prof["device_ms"] / step_ms
+    idle_e2e = 1.0 - prof["device_ms"] / e2e_ms
+    print(f"train step on a device-resident batch: {step_ms:.2f} ms; the "
+          f"host's dispatch of one step (median of 3) {dispatch_ms:.2f} ms; "
+          f"profiled step: device busy {prof['device_ms']:.2f} ms, "
+          f"{prof['launch_calls']} launch calls; idle share {idle_step:.3f} "
+          f"of the device-resident step, {idle_e2e:.3f} of {e2e_ms:.2f} ms "
+          f"per step end to end; by family {json.dumps(prof['families_ms'])}; "
+          f"host syncs {json.dumps(prof['syncs'])}; {card}", flush=True)
+    prof.update(step_ms=step_ms, dispatch_ms=dispatch_ms, e2e_step_ms=e2e_ms,
+                idle_share_step=idle_step, idle_share_end_to_end=idle_e2e)
+    return {"steps_per_s": steps / wall, "videos_per_s": steps * TRAIN_B / wall,
+            "launches": counts, "per_step": {k: v // steps for k, v in
+                                             counts.items()},
+            "peak_memory_bytes": peak, "loss_kernel": aux_k,
+            "loss_plain": aux_p, "grad_rel_all": total,
+            "swin_grads": len(checked), "grads_total": len(rows),
+            "worst_swin_grad_rel": worst, "worst_swin_grad_name": worst_name,
+            "worst_grads": rel[:8], "last": last, "profile": prof}
+
+
 def main() -> int:
     try:
         import torch
@@ -479,9 +903,13 @@ def main() -> int:
         f.write("\n".join(f"[{k}]\n{v}" for k, v in reports.items()))
 
     k1, k2 = kernel_phase(card)
+    k4f, k4b, k5f, k5b = train_kernel_phase(card)
+    reset_counts()
     run = main_path(card)
+    train = train_path(card)
 
-    def record(name, source, replaces, agg, launches, lib):
+    def record(name, source, replaces, agg, launches, lib,
+               per="the calls of one forward"):
         tb, tf = agg["bound"]
         return {
             "name": name, "route": "cuda", "source": source,
@@ -489,8 +917,11 @@ def main() -> int:
             "max_abs_err": agg["err"], "ms": agg["ms"],
             "plain_ms": agg["plain_ms"], "bound_ms": max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations",
-            "library_ms": lib, "per": "the calls of one forward",
+            "library_ms": lib, "per": per,
         }
+
+    step = "the calls of one train step (B=4, T=32)"
+    tl = train["launches"]
 
     kernels = [
         record("fused_swin_block", "kvq_tpu_torch/ops/csrc/swin_block.cu",
@@ -500,10 +931,27 @@ def main() -> int:
                "kvq_tpu_torch/ops/csrc/nobias_attention.cu",
                "kvq_tpu/ops/window_attention.py:560", k2,
                run["launches"]["flash_attention_nobias_cl"], k2["lib_ms"]),
+        record("train_swin_block", "kvq_tpu_torch/ops/csrc/swin_block.cu",
+               "kvq_tpu/ops/window_attention.py:2112", k4f,
+               tl["train_swin_block"], None, step),
+        record("train_swin_block_bwd", "kvq_tpu_torch/ops/csrc/swin_block.cu",
+               "kvq_tpu/ops/window_attention.py:1922", k4b,
+               tl["train_swin_block_bwd"], None, step),
+        record("window_attention_train",
+               "kvq_tpu_torch/ops/csrc/train_attention.cu",
+               "kvq_tpu/ops/window_attention.py:1376", k5f,
+               tl["window_attention_train"], k5f["lib_ms"], step),
+        record("window_attention_train_bwd",
+               "kvq_tpu_torch/ops/csrc/train_attention.cu",
+               "kvq_tpu/ops/window_attention.py:1416", k5b,
+               tl["window_attention_train_bwd"], k5b["lib_ms"], step),
     ]
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "k1_rows": k1["rows"], "k2_rows": k2["rows"],
-                   "run": run, "kernels": kernels}, f, indent=1)
+                   "k4_fwd_rows": k4f["rows"], "k4_bwd_rows": k4b["rows"],
+                   "k5_fwd_rows": k5f["rows"], "k5_bwd_rows": k5b["rows"],
+                   "run": run, "train": train, "kernels": kernels}, f,
+                  indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

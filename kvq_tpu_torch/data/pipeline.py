@@ -1,15 +1,21 @@
-"""Eval batch preparation and device feeding (counterpart of the batch
-helpers of kvq_tpu/train/trainer.py:62-110, 143-148, 408-426 and of
-kvq_tpu/data/pipeline.py:device_prefetch).
+"""Batch preparation and device feeding for eval and training (counterpart
+of the batch helpers of kvq_tpu/train/trainer.py:62-110, 143-148, 408-426
+and of kvq_tpu/data/pipeline.py:device_prefetch).
 
 Batches arrive in the JAX ``Loader``'s collated format: numpy arrays for
 the views and scalars, lists for metadata (``video_name``, ``num_clips``).
+An eval batch is padded to the eval batch size and clip-reshaped; a train
+batch (``fragment``, ``resize_video``, ``label``, ``dis_label``) is neither
+(:func:`train_host_tensors`).  Both are pre-cast on a worker thread
+(:func:`prepared_in_background`) and copied ahead on a side stream
+(:func:`prefetch_to_device`).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Iterable, Iterator
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -94,6 +100,34 @@ def host_tensors(batch: dict, cast: torch.dtype | None,
             t = src.to(dt)
         out[k] = t
     return out
+
+
+TRAIN_KEYS = ("fragment", "resize_video", "label", "dis_label")
+
+
+def train_host_tensors(batch: dict, cast: torch.dtype | None,
+                       pin: bool) -> dict[str, torch.Tensor]:
+    """A train batch's array fields as host tensors (views pre-cast to
+    ``cast``, pinned when ``pin``): no padding and no clip reshape."""
+    missing = [k for k in TRAIN_KEYS if k not in batch]
+    if missing:
+        raise KeyError(f"train batch lacks {missing}")
+    return host_tensors({k: batch[k] for k in TRAIN_KEYS}, cast, pin)
+
+
+def prepared_in_background(prepare: Callable, items: Iterable,
+                           depth: int = 2) -> Iterator:
+    """``prepare(item)`` for each item, in order, on one worker thread up
+    to ``depth`` items ahead: the casts release the interpreter lock, so
+    they overlap the main thread's dispatch of the model."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ahead: collections.deque = collections.deque()
+        for item in items:
+            ahead.append(pool.submit(prepare, item))
+            if len(ahead) > depth:
+                yield ahead.popleft().result()
+        while ahead:
+            yield ahead.popleft().result()
 
 
 def prefetch_to_device(items: Iterable, device: torch.device,

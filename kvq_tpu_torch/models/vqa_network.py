@@ -3,9 +3,13 @@ of the reference ``VQA_Network`` (models/model.py:18-121): one
 ``<key>_backbone`` + ``<key>_head`` per key of ``config['model']['args']``.
 Only the KSVQE key is ported so far.
 
-:func:`build_model` is the entry point: it builds on ``device`` (CUDA by
-default), fills every parameter from a seeded ``torch.Generator`` and casts
-to the config's ``compute_dtype``.
+:func:`build_model` is the eval entry point: it builds on ``device`` (CUDA
+by default), fills every parameter from a seeded ``torch.Generator`` and
+casts to the config's ``compute_dtype``.  :func:`build_train_model` keeps
+the master parameters in float32, as flax keeps params f32 under a bf16
+``dtype``; a training forward runs on :func:`compute_tensors`, copies in the
+compute dtype made inside autograd, so that the gradients reach the f32
+masters.
 """
 
 from __future__ import annotations
@@ -54,14 +58,17 @@ class VQANetwork(nn.Module):
                 hidden_channels=int(head_cfg.get("hidden_channels", 64)),
             ))
 
-    def forward(self, inputs: dict[str, Any], reduce_scores: bool = False):
+    def forward(self, inputs: dict[str, Any], reduce_scores: bool = False,
+                gen=None):
+        """``gen``: the torch.Generator of a training forward's draws (QRS
+        noise, DropPath, head dropout, in that order)."""
         scores = []
         dis_contra_loss = None
         for key in self.key_names:
-            feat = getattr(self, f"{key}_backbone")(inputs)
+            feat = getattr(self, f"{key}_backbone")(inputs, gen)
             if key == "KSVQE":
                 feat, dis_contra_loss = feat
-            scores.append(getattr(self, f"{key}_head")(feat))
+            scores.append(getattr(self, f"{key}_head")(feat, gen))
         if reduce_scores:
             out = scores[0]
             for s in scores[1:]:
@@ -107,6 +114,28 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             b.zero_()
 
 
+def _compute_dtype_of(name: str, t: torch.Tensor, dtype: torch.dtype):
+    if not t.is_floating_point() or any(k in name for k in _F32_PARAMS):
+        return t.dtype
+    return dtype
+
+
+def compute_tensors(model: nn.Module, dtype: torch.dtype,
+                    trainable_only: bool = False) -> dict:
+    """name -> the parameter or buffer in the compute dtype, the
+    ``_F32_PARAMS`` kept float32 (the casts of ``cast_model``, made out of
+    place and differentiable), for ``torch.func.functional_call``.  With
+    ``trainable_only``, only the parameters that require a gradient."""
+    out = {}
+    for name, p in model.named_parameters():
+        if p.requires_grad or not trainable_only:
+            out[name] = p.to(_compute_dtype_of(name, p, dtype))
+    if not trainable_only:
+        for name, b in model.named_buffers():
+            out[name] = b.to(_compute_dtype_of(name, b, dtype))
+    return out
+
+
 def cast_model(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast to the compute dtype, keeping the float32 parameters of
     ``_F32_PARAMS`` in float32."""
@@ -132,3 +161,14 @@ def build_model(config: dict, device="cuda", seed: int = 0,
     else:
         init_weights(model, seed)
     return cast_model(model, compute_dtype(config)).eval()
+
+
+def build_train_model(config: dict, device="cuda",
+                      seed: int = 0) -> VQANetwork:
+    """The network for training on ``device``: seeded random float32
+    master parameters, in train mode."""
+    dev = resolve_device(device)
+    with torch.device(dev):
+        model = VQANetwork(config)
+    init_weights(model, seed)
+    return model.train()

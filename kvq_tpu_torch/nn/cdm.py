@@ -10,8 +10,11 @@ kvq_tpu/nn/cdm.py; reference KSVQE_model.py).
   - :class:`DistFiLM`          == Dist_Transformation3 (:934-960).
 
 With ``use_pallas`` the attentions run K2
-(:func:`~kvq_tpu_torch.ops.window_attention.flash_attention_nobias_cl`):
-the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+(:func:`~kvq_tpu_torch.ops.window_attention.flash_attention_nobias_cl`) at
+eval: the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
+K2 has no backward: in training the attentions run their plain composition
+under autograd, as the JAX package keeps its XLA form there
+(kvq_tpu/nn/cdm.py, ``use_pallas and not train``).
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ class CrossAttention(nn.Module):
         C = q_tokens.shape[-1]
         h = self.num_heads
         q, k, v = self.fc_q(q_tokens), self.fc_k(kv_tokens), self.fc_v(kv_tokens)
-        if self.use_pallas:
+        if self.use_pallas and not self.training:
             return flash_attention_nobias_cl(q, k, v, h, C ** -0.5)
         q, k, v = _heads(q, h), _heads(k, h), _heads(v, h)
         attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) / C ** 0.5
@@ -80,7 +83,7 @@ class TemporalAttention(nn.Module):
         h = self.num_heads
         hd = C // h
         q, k, v = self.to_qkv(x).split(C, dim=-1)
-        if self.use_pallas:
+        if self.use_pallas and not self.training:
             return self.to_out(flash_attention_nobias_cl(q, k, v, h, hd ** -0.5))
         q, k, v = _heads(q, h) * hd ** -0.5, _heads(k, h), _heads(v, h)
         attn = torch.matmul(q.float(), k.float().transpose(-1, -2))

@@ -1,11 +1,11 @@
-"""KSVQE — the paper model (arXiv:2402.07220), eval path (counterpart of
+"""KSVQE — the paper model (arXiv:2402.07220) (counterpart of
 kvq_tpu/nn/ksvqe.py; reference KSVQE_model.py:1024-1506).
 
   (a) CLIP ViT-B/16 semantic tool over 4 keyframes;
   (b) frozen CONTRIQUE distortion tool + dist_adapter blended 0.2/0.8 on
       temporally-halved frames;
-  (c) quality-aware region selection (hard argmax at eval), one region per
-      frame;
+  (c) quality-aware region selection, one region per frame: hard argmax
+      at eval, perturbed top-1 soft weights in training;
   (d) Swin-3D-Tiny trunk with CDM modulation after each stage >=
       tuning_stage: semantic cross-attention + spatial FiLM, distortion
       cross-attention + temporal self-attention + channel FiLM, combined
@@ -13,7 +13,10 @@ kvq_tpu/nn/ksvqe.py; reference KSVQE_model.py:1024-1506).
   (e) the supervised contrastive distortion loss, returned beside the
       features.
 
-Training (perturbed top-k QRS, DropPath) is not ported yet.
+A training forward (``model.train()``) draws, from the one generator it is
+given and in this order: the QRS noise, then each Swin block's two DropPath
+masks.  The distortion tool sees the selected frames detached, and CONTRIQUE
+keeps eval semantics (frozen BatchNorm), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,15 +32,23 @@ from .cdm import AdapterMLP, CrossAttention, DistFiLM, SemanticFiLM, TemporalAtt
 from .clip_vit import CLIPVisionTower
 from .contrique import CONTRIQUE
 from .layers import LayerNorm, PatchEmbed3D
-from .regionnet import RegionSelector, extract_region_hard, keyframe_schedule
+from .regionnet import (
+    RegionSelector,
+    extract_region_hard,
+    extract_region_weighted,
+    keyframe_schedule,
+)
 from .swin import SwinConfig, make_stages
 
 
 @dataclasses.dataclass(frozen=True)
 class KSVQEConfig:
-    """kvq_tpu's KSVQEConfig without its train-only fields (perturbed top-k
-    samples and sigma, remat), which arrive with the train slice."""
+    """kvq_tpu's KSVQEConfig without remat (``use_checkpoint``) and the
+    CONTRIQUE BatchNorm fold, which change no result."""
 
+    num_samples: int = 1
+    sample_type: str = "topkpertubation"
+    sigma: float = 0.5
     clip_location: int = 8
     cls_use: bool = True
     tuning_stage: int = 1
@@ -63,9 +74,12 @@ class KSVQEConfig:
 
 def ksvqe_config(bb: dict | None) -> KSVQEConfig:
     """Build from the reference YAML backbone block
-    (config/Kwai_KSVQE.yml:63-75); keys of the train path are ignored."""
+    (config/Kwai_KSVQE.yml:63-75)."""
     bb = bb or {}
     return KSVQEConfig(
+        num_samples=int(bb.get("num_samples", 1)),
+        sample_type=bb.get("sample_type", "topkpertubation"),
+        sigma=float(bb.get("sigma", 0.5)),
         clip_location=int(bb.get("CLIP_location", 8)),
         cls_use=bool(bb.get("cls_use", True)),
         tuning_stage=int(bb.get("tuning_stage", 1)),
@@ -98,8 +112,10 @@ class KSVQE(nn.Module):
         self.distortion_tool = CONTRIQUE(anchor_size=cfg.anchor_size,
                                          layers=cfg.contrique_layers)
         self.dist_adapter = AdapterMLP(128, 128)
-        self.selector = RegionSelector(k=cfg.region_k,
-                                       anchor_size=cfg.anchor_size)
+        self.selector = RegionSelector(
+            k=cfg.region_k, anchor_size=cfg.anchor_size,
+            num_samples=cfg.num_samples, sample_type=cfg.sample_type,
+            sigma=cfg.sigma)
         self.patch_embed = PatchEmbed3D(cfg.patch_size, cfg.embed_dim)
         self.layers = make_stages(SwinConfig(
             patch_size=cfg.patch_size, embed_dim=cfg.embed_dim,
@@ -135,7 +151,7 @@ class KSVQE(nn.Module):
         self.a1 = nn.Parameter(torch.full((n_mod, 1), float(cfg.a1)))
         self.a2 = nn.Parameter(torch.full((n_mod, 1), float(cfg.a2)))
 
-    def _select_and_embed_packed(self, fragment, cls_attn, group_id):
+    def _select_and_embed_packed(self, fragment, cls_attn, group_id, gen):
         """QRS + patch embed on an s2d-packed fragment (B, T/2, H/4, W/4, 96).
 
         Keyframe-group boundaries fall at odd frame indices, so the two
@@ -151,15 +167,17 @@ class KSVQE(nn.Module):
         Cs = K // pt
         anchor = self.selector.anchor // ph
         k_side = self.selector.k_side
+        train = self.training
         sel = self.selector.select(cls_attn, group_id,
-                                   (Hp // anchor, Wp // anchor))
+                                   (Hp // anchor, Wp // anchor), train, gen)
+        extract = extract_region_weighted if train else extract_region_hard
         halves = [
-            extract_region_hard(fragment[..., ti * Cs:(ti + 1) * Cs],
-                                sel[:, ti::pt], anchor, k_side)
+            extract(fragment[..., ti * Cs:(ti + 1) * Cs], sel[:, ti::pt],
+                    anchor, k_side)
             for ti in range(pt)
         ]
         x = self.patch_embed(torch.cat(halves, dim=-1), packed=True)
-        ev = halves[0]
+        ev = halves[0].detach()
         _, _, h2, w2, _ = ev.shape
         c = Cs // (ph * pw)
         dist_in = (ev.reshape(B, T2, h2, w2, ph, pw, c)
@@ -167,7 +185,8 @@ class KSVQE(nn.Module):
                    .reshape(B, T2, h2 * ph, w2 * pw, c))
         return x, dist_in
 
-    def forward(self, batch):
+    def forward(self, batch, gen=None):
+        """``gen``: the torch.Generator of a training forward's draws."""
         cfg = self.config
         dt = self.patch_embed.proj.weight.dtype
         revideo = batch["resize_video"].to(dt)
@@ -198,18 +217,19 @@ class KSVQE(nn.Module):
 
         if cfg.s2d_input:
             x, dist_in = self._select_and_embed_packed(fragment, cls_attn,
-                                                       group_id)
+                                                       group_id, gen)
         else:
-            x_sel = self.selector(fragment, cls_attn, group_id)
+            x_sel = self.selector(fragment, cls_attn, group_id,
+                                  self.training, gen)
             x = self.patch_embed(x_sel)
-            dist_in = x_sel[:, ::2]
+            dist_in = x_sel.detach()[:, ::2]
         dist_tok = self.distortion_tool(dist_in)  # (B, T/2, G, 128) f32
         dist_tok = 0.2 * self.dist_adapter(dist_tok) + 0.8 * dist_tok
         dis_loss = distortion_contrastive_supervised(dist_tok, dis_label)
 
         ts = cfg.tuning_stage
         for l, stage in enumerate(self.layers):
-            x = stage(x)
+            x = stage(x, gen)
             if l < ts:
                 continue
             m = l - ts

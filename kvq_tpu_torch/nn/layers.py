@@ -60,17 +60,50 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def keep_multipliers(shape, rate: float, gen, device) -> torch.Tensor:
+    """float32 multipliers ``mask / keep`` with mask ~ Bernoulli(keep),
+    keep = 1 - rate, drawn from ``gen``: the training draws of DropPath and
+    dropout.  Every draw of the train path comes from one explicit
+    generator, in a fixed order, whichever route runs."""
+    if gen is None:
+        raise ValueError("a training forward draws from a torch.Generator: "
+                         "pass gen")
+    keep = 1.0 - rate
+    mask = torch.rand(shape, generator=gen, device=device) < keep
+    return mask.float() / keep
+
+
+def dropout(x, rate: float, gen):
+    """Elementwise dropout (flax ``nn.Dropout``): x / keep where kept, else
+    0."""
+    mult = keep_multipliers(x.shape, rate, gen, x.device)
+    return (x.float() * mult).to(x.dtype)
+
+
 class DropPath(nn.Module):
-    """Stochastic depth; the identity at eval, which is all this port runs."""
+    """Stochastic depth (reference timm DropPath; JAX nn/layers.py
+    DropPath): in training each sample's residual branch is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate).  The caller draws
+    the per-sample multipliers with :meth:`multipliers` and applies them
+    with ``forward``, so that the fused block kernel can take the same
+    draws."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("DropPath in training is not ported yet")
-        return x
+    def multipliers(self, batch: int, gen, device):
+        """(batch,) float32 mask / keep, or None when nothing is dropped
+        (eval, or rate 0)."""
+        if not self.training or self.rate == 0.0:
+            return None
+        return keep_multipliers((batch,), self.rate, gen, device)
+
+    def forward(self, x, mult=None):
+        if mult is None:
+            return x
+        shape = (-1,) + (1,) * (x.dim() - 1)
+        return (x.float() * mult.view(shape)).to(x.dtype)
 
 
 class PatchEmbed3D(nn.Module):

@@ -9,12 +9,18 @@ Reference quirks kept for checkpoint parity:
     the relative bias for windows spanning more than one fragment
     (swin_backbone.py:291-302).
 
-Routing in :class:`SwinBlock3D` with ``use_pallas``: pad-free dims go
-through K1 (:func:`~kvq_tpu_torch.ops.window_attention.fused_swin_block`),
-which launches the CUDA kernels for CUDA tensors and runs its plain version
-for CPU tensors.  Padded dims take K3 in the JAX package, which is not
-ported yet: on CUDA they raise NotImplementedError, on the CPU they take the
-plain path.
+Routing in :class:`SwinBlock3D` with ``use_pallas`` follows the reference
+(nn/reference_routing.py).  At eval, pad-free dims go through K1
+(:func:`~kvq_tpu_torch.ops.window_attention.fused_swin_block`); padded dims
+take K3 in the JAX package, which is not ported yet: on CUDA they raise
+NotImplementedError, on the CPU they take the plain path.  In training,
+pad-free blocks that pass both of the reference's gates take K4
+(:func:`~kvq_tpu_torch.ops.train_attention.train_swin_block`), and every
+other block runs its plain LayerNorm/MLP around K5
+(:func:`~kvq_tpu_torch.ops.train_attention.window_attention_train`).  Each
+wrapper launches its CUDA kernels for CUDA tensors and runs its plain
+version for CPU tensors.  The bias tables get their gradients through the
+gather of :func:`expand_bias_planes`.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.train_attention import train_swin_block, window_attention_train
 from ..ops.window_attention import (
     WindowGeometry,
     fused_swin_block,
@@ -33,6 +40,7 @@ from ..ops.window_attention import (
     window_attention_plain,
 )
 from .layers import DropPath, LayerNorm, Mlp, PatchMerging
+from .reference_routing import takes_fused_block
 
 
 def get_window_size(x_size, window_size, shift_size=None):
@@ -78,7 +86,8 @@ def expand_bias_planes(table, table_window, n):
     """(table_len, h) bias table -> (h, n, n) float32 planes through the
     relative-position gather, with the reference's [:N, :N] slice."""
     idx = _rpi_tensor(tuple(table_window), n, table.device)
-    return table.float()[idx].view(n, n, -1).permute(2, 0, 1).contiguous()
+    planes = table.float().index_select(0, idx)  # backward: index_add_
+    return planes.view(n, n, -1).permute(2, 0, 1).contiguous()
 
 
 def window_partition(x, window_size):
@@ -103,8 +112,9 @@ def _table_len(window):
 
 
 class WindowAttention3D(nn.Module):
-    """W-MSA over flattened windows with dual position-bias tables; the
-    plain (XLA-composition) path."""
+    """W-MSA over flattened windows with dual position-bias tables: the
+    plain (XLA-composition) path, or K5 when a training forward gives the
+    window geometry."""
 
     def __init__(self, dim, num_heads, table_window, frag_bias=False,
                  qkv_bias=True):
@@ -130,15 +140,21 @@ class WindowAttention3D(nn.Module):
                                       self.table_window, n)
         return rel, frag
 
-    def forward(self, x, mask=None, fgate=None):
-        # x: (B, nW, N, C); mask/fgate: (nW, N, N) or None
+    def forward(self, x, mask=None, fgate=None, geometry=None):
+        # x: (B, nW, N, C); mask/fgate: (nW, N, N) or None; geometry: the
+        # padded window geometry, given for K5
         B, nW, N, C = x.shape
         h = self.num_heads
         hd = C // h
         qkv = self.qkv(x).view(B, nW, N, 3, h, hd).permute(3, 0, 1, 4, 2, 5)
         rel, frag = self.bias_planes(N)
-        out = window_attention_plain(qkv[0], qkv[1], qkv[2], rel, frag,
-                                     fgate, mask, hd ** -0.5)
+        if geometry is not None:
+            q, k, v = (t.reshape(B * nW, h, N, hd).contiguous() for t in qkv)
+            out = window_attention_train(q, k, v, rel, frag, geometry,
+                                         hd ** -0.5).view(B, nW, h, N, hd)
+        else:
+            out = window_attention_plain(qkv[0], qkv[1], qkv[2], rel, frag,
+                                         fgate, mask, hd ** -0.5)
         out = out.transpose(2, 3).reshape(B, nW, N, C).to(x.dtype)
         return self.proj(out)
 
@@ -187,7 +203,9 @@ class SwinBlock3D(nn.Module):
             "fc2_w": m.fc2.weight, "fc2_b": m.fc2.bias,
         }
 
-    def _fused_block(self, x, window, shift):
+    def _fused_block(self, x, window, shift, dp1=None, dp2=None):
+        """K1 at eval, K4 in training (with the (B,) DropPath multipliers,
+        repeated over each sample's windows; ones when nothing drops)."""
         B, D, H, W, C = x.shape
         N = window[0] * window[1] * window[2]
         rel, frag = self.attn.bias_planes(N)
@@ -197,25 +215,40 @@ class SwinBlock3D(nn.Module):
             y = torch.roll(y, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
         y = window_partition(y, window)
         nW = y.shape[1]
-        out = fused_swin_block(y.reshape(B * nW, N, C).contiguous(),
-                               self.block_params(), rel, frag, geo)
+        y = y.reshape(B * nW, N, C).contiguous()
+        if self.training:
+            ones = torch.ones(B, device=x.device)
+            dp1, dp2 = (ones if d is None else d for d in (dp1, dp2))
+            out = train_swin_block(y, self.block_params(), rel, frag, geo,
+                                   dp1.repeat_interleave(nW),
+                                   dp2.repeat_interleave(nW))
+        else:
+            out = fused_swin_block(y, self.block_params(), rel, frag, geo)
         out = window_reverse(out.reshape(B, nW, N, C), window, B, D, H, W)
         if any(shift):
             out = torch.roll(out, shifts=tuple(shift), dims=(1, 2, 3))
         return out
 
-    def forward(self, x):
+    def forward(self, x, gen=None):
+        """``gen``: the torch.Generator of a training forward's DropPath
+        draws (two per block, attention branch first, on every route)."""
         B, D, H, W, C = x.shape
         cfg_shift = (tuple(w // 2 for w in self.window_size) if self.shift
                      else (0, 0, 0))
         window, shift = get_window_size((D, H, W), self.window_size, cfg_shift)
         no_pad = all(d % w == 0 for d, w in zip((D, H, W), window))
+        dp1 = self.drop_path.multipliers(B, gen, x.device)
+        dp2 = self.drop_path.multipliers(B, gen, x.device)
+        use_k5 = False
         if self.use_pallas:
-            if no_pad:
-                return self._fused_block(x, window, shift)
-            if x.is_cuda:
+            probe = self._geometry(B, (D, H, W), window, shift, C)
+            if no_pad and takes_fused_block(probe, C, self.mlp.fc1.out_features,
+                                            self.training):
+                return self._fused_block(x, window, shift, dp1, dp2)
+            use_k5 = self.training  # K5, at the padded dims below
+            if not self.training and x.is_cuda:
                 raise NotImplementedError(
-                    "padded window dims take flash_window_attention_packed "
+                    "this eval block takes flash_window_attention_packed "
                     "(K3) in the JAX package, which is not ported yet"
                 )
 
@@ -227,16 +260,19 @@ class SwinBlock3D(nn.Module):
         if any(shift):
             y = torch.roll(y, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
         geo = self._geometry(B, (Dp, Hp, Wp), window, shift, C)
-        gate, mask = gate_and_mask(geo, x.device)
         y = window_partition(y, window)
-        y = self.attn(y, mask, gate if self.frag_bias else None)
+        if use_k5:
+            y = self.attn(y, geometry=geo)
+        else:
+            gate, mask = gate_and_mask(geo, x.device)
+            y = self.attn(y, mask, gate if self.frag_bias else None)
         y = window_reverse(y, window, B, Dp, Hp, Wp)
         if any(shift):
             y = torch.roll(y, shifts=tuple(shift), dims=(1, 2, 3))
         if any(pads):
             y = y[:, :D, :H, :W]
-        x = x + self.drop_path(y)
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        x = x + self.drop_path(y, dp1)
+        return x + self.drop_path(self.mlp(self.norm2(x)), dp2)
 
 
 class BasicLayer(nn.Module):
@@ -257,9 +293,9 @@ class BasicLayer(nn.Module):
         ])
         self.downsample = PatchMerging(dim) if downsample else None
 
-    def forward(self, x):
+    def forward(self, x, gen=None):
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, gen)
         if self.downsample is not None:
             x = self.downsample(x)
         return x

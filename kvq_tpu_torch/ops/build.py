@@ -26,15 +26,30 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # name -> (exported function, argtypes)
 LIBRARIES = {
     "swin_block": {
-        "kvq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "kvq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P),
+        "kvq_gemm_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "kvq_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
+        "kvq_layernorm_bwd": (
+            _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P,
+        ),
+        "kvq_colsum": (_P, _I, _P, _I, _P, _I, _I, _P),
+        "kvq_scale_rows": (_P, _P, _I, _P, _I, _I, _P),
         "kvq_window_attention": (
-            _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P,
+            _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P, _P,
         ),
     },
     "nobias_attention": {
         "kvq_attention_nobias": (
             _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _F, _P,
+        ),
+    },
+    "train_attention": {
+        "kvq_window_attention_train": (
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F,
+            _P,
+        ),
+        "kvq_window_attention_bwd": (
+            *(_P,) * 14, _I, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P,
         ),
     },
 }

@@ -8,8 +8,10 @@
 //   WINDOW = false  K2 (flash_attention_nobias_cl): batched attention with no
 //                   bias or mask, heads split along the channel axis.
 //
-// Replaces the Pallas kernels _make_block_kernel (attention part) and
-// _make_nobias_cl_kernel of kvq_tpu/ops/window_attention.py.
+// Replaces the Pallas kernels _make_block_kernel (attention part),
+// _make_nobias_cl_kernel and, with head-major strides and the row
+// log-sum-exp written out, _make_train_fwd_kernel (K5's forward) of
+// kvq_tpu/ops/window_attention.py.
 //
 // Bound on this card: at hd = 32/64 the two products do 2*hd FLOPs per
 // score, so the exp and the bias arithmetic per score, not the tensor
@@ -36,6 +38,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace kvq {
 
 using bf16 = __nv_bfloat16;
@@ -49,15 +53,17 @@ constexpr int kSLd = kBKV + 8;  // f32 score row stride
 constexpr int kPLd = kBKV + 8;  // bf16 probability row stride
 
 struct AttnParams {
-  const bf16* q;  // row-major rows of length >= heads*HD, row stride ldq
+  const bf16* q;  // element (b, h, row, d) at b*sq + h*hq + row*ldq + d
   const bf16* k;
   const bf16* v;
-  bf16* out;      // row-major (batch*N, ldo)
+  bf16* out;
   long long ldq, ldk, ldv, ldo;   // row strides, elements
   long long sq, sk, sv, so;       // batch strides, elements
+  long long hq, hk, hv, ho;       // head strides, elements
   int n_q, n_kv;                  // rows of q / of k and v per batch entry
   int heads;
   float scale;
+  float* lse;  // (batch, heads, n_q) row log-sum-exp, or nullptr
   // WINDOW only: bias planes (heads, N, N) f32 and the window geometry
   const float* rel;
   const float* frag;  // nullptr when the stage has no fragment bias
@@ -101,6 +107,53 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Adds the gate-blended bias and the -100 seam mask to one lane's 32 scores
+// of a query row (token ids qi; bias rows rel_r / frag_r, frag_r null
+// without a fragment bias) against the key tile starting at k0.  Lane
+// columns are hc + 8*j + [0, 4).  Shared by the forward and the backward
+// so that both see the same scores.
+__device__ __forceinline__ void add_window_bias(float (&s)[32], int n_kv,
+                                                const float* rel_r,
+                                                const float* frag_r, int qi,
+                                                const int* sKid, int k0,
+                                                int hc) {
+  const bool vec_bias = n_kv % 4 == 0;  // float4 loads stay aligned
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = hc + 8 * j;
+    float rb[4] = {0.f, 0.f, 0.f, 0.f}, fb[4] = {0.f, 0.f, 0.f, 0.f};
+    if (vec_bias) {
+      if (k0 + c < n_kv) {
+        const float4 rv = *reinterpret_cast<const float4*>(rel_r + k0 + c);
+        rb[0] = rv.x; rb[1] = rv.y; rb[2] = rv.z; rb[3] = rv.w;
+        if (frag_r) {
+          const float4 fv = *reinterpret_cast<const float4*>(frag_r + k0 + c);
+          fb[0] = fv.x; fb[1] = fv.y; fb[2] = fv.z; fb[3] = fv.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (k0 + c + e < n_kv) {
+          rb[e] = rel_r[k0 + c + e];
+          if (frag_r) fb[e] = frag_r[k0 + c + e];
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ki = sKid[c + e];
+      float bias = rb[e];
+      if (frag_r) {
+        const float g = frag_gate(qi, ki);
+        bias = bias * g + fb[e] * (1.f - g);
+      }
+      s[4 * j + e] += bias;
+      if ((qi & 0xff) != (ki & 0xff)) s[4 * j + e] -= 100.f;
+    }
+  }
 }
 
 template <int HD>
@@ -165,9 +218,9 @@ flash_attention_kernel(const AttnParams p) {
   const int hc = (lane & 1) * 4;
   const int row = q0 + warp * 16 + r;
 
-  const bf16* qb = p.q + batch * p.sq + head * HD;
-  const bf16* kb = p.k + batch * p.sk + head * HD;
-  const bf16* vb = p.v + batch * p.sv + head * HD;
+  const bf16* qb = p.q + batch * p.sq + head * p.hq;
+  const bf16* kb = p.k + batch * p.sk + head * p.hk;
+  const bf16* vb = p.v + batch * p.sv + head * p.hv;
 
   load_tile<HD, kBQ, true>(sQ, qb, p.ldq, q0, p.n_q, p.scale);
   if (WINDOW) {
@@ -181,7 +234,6 @@ flash_attention_kernel(const AttnParams p) {
 
   float m_run = -INFINITY, l_run = 0.f;  // equal in both lanes of a row
   const bool bias_row = WINDOW && row < p.n_q;
-  const bool vec_bias = p.n_kv % 4 == 0;  // float4 loads stay aligned
   const float* rel_r =
       bias_row ? p.rel + ((long long)head * p.n_q + row) * p.n_kv : nullptr;
   const float* frag_r = (bias_row && p.frag)
@@ -224,43 +276,7 @@ flash_attention_kernel(const AttnParams p) {
       s[4 * j + 2] = v.z;
       s[4 * j + 3] = v.w;
     }
-    if (bias_row) {
-      const int qi = sQid[warp * 16 + r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = hc + 8 * j;
-        float rb[4] = {0.f, 0.f, 0.f, 0.f}, fb[4] = {0.f, 0.f, 0.f, 0.f};
-        if (vec_bias) {
-          if (k0 + c < p.n_kv) {
-            const float4 rv = *reinterpret_cast<const float4*>(rel_r + k0 + c);
-            rb[0] = rv.x; rb[1] = rv.y; rb[2] = rv.z; rb[3] = rv.w;
-            if (frag_r) {
-              const float4 fv = *reinterpret_cast<const float4*>(frag_r + k0 + c);
-              fb[0] = fv.x; fb[1] = fv.y; fb[2] = fv.z; fb[3] = fv.w;
-            }
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (k0 + c + e < p.n_kv) {
-              rb[e] = rel_r[k0 + c + e];
-              if (frag_r) fb[e] = frag_r[k0 + c + e];
-            }
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ki = sKid[c + e];
-          float bias = rb[e];
-          if (frag_r) {
-            const float g = frag_gate(qi, ki);
-            bias = bias * g + fb[e] * (1.f - g);
-          }
-          s[4 * j + e] += bias;
-          if ((qi & 0xff) != (ki & 0xff)) s[4 * j + e] -= 100.f;
-        }
-      }
-    }
+    if (bias_row) add_window_bias(s, p.n_kv, rel_r, frag_r, sQid[warp * 16 + r], sKid, k0, hc);
     float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -320,7 +336,7 @@ flash_attention_kernel(const AttnParams p) {
   if (row < p.n_q) {
     const float inv = 1.f / l_run;
     const float* o = wO + r * kOLd + (lane & 1) * (HD / 2);
-    bf16* dst = p.out + batch * p.so + (long long)row * p.ldo + head * HD +
+    bf16* dst = p.out + batch * p.so + (long long)row * p.ldo + head * p.ho +
                 (lane & 1) * (HD / 2);
 #pragma unroll
     for (int d = 0; d < HD / 2; d += 8) {
@@ -329,6 +345,8 @@ flash_attention_kernel(const AttnParams p) {
       for (int e = 0; e < 8; ++e) ob[e] = __float2bfloat16(o[d + e] * inv);
       *reinterpret_cast<uint4*>(dst + d) = *reinterpret_cast<const uint4*>(ob);
     }
+    if (p.lse && (lane & 1) == 0)
+      p.lse[((long long)batch * p.heads + head) * p.n_q + row] = m_run + logf(l_run);
   }
 }
 

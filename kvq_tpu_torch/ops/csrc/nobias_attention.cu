@@ -34,6 +34,7 @@ extern "C" int kvq_attention_nobias(const bf16* q, const bf16* k,
   p.sk = ldk * M;
   p.sv = ldv * M;
   p.so = (long long)C * N;
+  p.hq = p.hk = p.hv = p.ho = C / heads;
   p.n_q = N;
   p.n_kv = M;
   p.heads = heads;

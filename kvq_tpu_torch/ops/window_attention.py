@@ -126,11 +126,14 @@ def _linear(x, w, b):
     return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
-def fused_swin_block_plain(x, params, rel_bias, frag_bias, geo, scale=None):
-    """Plain version of K1: SwinBlock3D's XLA path on (BW, N, C)
+def fused_swin_block_plain(x, params, rel_bias, frag_bias, geo, scale=None,
+                           dp1=None, dp2=None):
+    """Plain version of K1 (and of K4's forward, given the (BW,) DropPath
+    multipliers ``dp1``/``dp2``): SwinBlock3D's XLA path on (BW, N, C)
     partitioned, rolled tokens.  ``params`` holds the block's weights under
     the JAX kernel's keys (norm1_scale, qkv_w, ...), each weight in
-    nn.Linear's (out, in) layout."""
+    nn.Linear's (out, in) layout.  Each branch is rounded to x's dtype,
+    scaled by its multiplier and rounded again, as the kernels do."""
     BW, N, C = x.shape
     h = geo.num_heads
     hd = C // h
@@ -147,10 +150,17 @@ def fused_swin_block_plain(x, params, rel_bias, frag_bias, geo, scale=None):
         gate if geo.use_frag else None, mask, scale,
     )
     att = att.transpose(2, 3).reshape(BW, N, C).to(x.dtype)
-    x1 = x + _linear(att, params["proj_w"], params["proj_b"])
+    x1 = x + _branch(_linear(att, params["proj_w"], params["proj_b"]), dp1)
     y2 = layer_norm(x1, params["norm2_scale"], params["norm2_bias"])
     hmid = F.gelu(_linear(y2, params["fc1_w"], params["fc1_b"]))
-    return x1 + _linear(hmid, params["fc2_w"], params["fc2_b"])
+    return x1 + _branch(_linear(hmid, params["fc2_w"], params["fc2_b"]), dp2)
+
+
+def _branch(y, dp):
+    """A residual branch times its per-window DropPath multiplier."""
+    if dp is None:
+        return y
+    return (y.float() * dp.float()[:, None, None]).to(y.dtype)
 
 
 def attention_nobias_plain(q, k, v, num_heads: int, scale: float):
@@ -197,9 +207,103 @@ _BLOCK_KEYS = ("norm1_scale", "norm1_bias", "qkv_w", "qkv_b", "proj_w",
                "fc2_w", "fc2_b")
 
 
+def check_block_args(name, x, params, rel_bias, frag_bias, geo):
+    """Shapes, dtypes and layout that the block kernels (K1, K4) take on
+    CUDA; raises on anything else."""
+    BW, N, C = x.shape
+    h, hd = geo.num_heads, geo.head_dim
+    hidden = params["fc1_w"].shape[0]
+    if x.dtype != torch.bfloat16 or any(
+        params[k].dtype != torch.bfloat16 for k in _BLOCK_KEYS
+    ):
+        raise TypeError(f"{name}: x and the block weights must be bfloat16 "
+                        "on CUDA")
+    if rel_bias.dtype != torch.float32 or (
+        frag_bias is not None and frag_bias.dtype != torch.float32
+    ):
+        raise TypeError(f"{name}: bias planes must be float32")
+    if hd not in (32, 64) or C % 8 or hidden % 8:
+        raise ValueError(f"{name}: unsupported C={C}, head_dim={hd}, "
+                         f"hidden={hidden}")
+    if rel_bias.shape != (h, N, N) or (
+        frag_bias is not None and frag_bias.shape != (h, N, N)
+    ):
+        raise ValueError(f"{name}: bias planes must be (h, N, N)")
+    expect = {"qkv_w": (3 * C, C), "proj_w": (C, C), "fc1_w": (hidden, C),
+              "fc2_w": (C, hidden)}
+    for k, shape in expect.items():
+        if tuple(params[k].shape) != shape:
+            raise ValueError(f"{name}: {k} is {tuple(params[k].shape)}, "
+                             f"expected {shape}")
+    _check_cuda(name, x.device, x=x, rel_bias=rel_bias, frag_bias=frag_bias,
+                **{k: params[k] for k in _BLOCK_KEYS})
+
+
+def _geometry_args(geo):
+    ints = ctypes.c_int * 3
+    return (ints(*geo.dims), ints(*geo.window), ints(*geo.shift),
+            ints(*geo.fragments))
+
+
+def block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale,
+                       dp1=None, dp2=None, keep=False):
+    """The block's forward as this repository's CUDA kernels (K1, and K4
+    with the DropPath multipliers ``dp1``/``dp2`` of shape (BW,) f32).
+    With ``keep`` it returns the intermediates K4's backward needs: y1,
+    qkv, att, the attention's row log-sum-exp, x1, y2, the fc1
+    pre-activation and its GELU.  Arguments are checked by the caller."""
+    BW, N, C = x.shape
+    h = geo.num_heads
+    dev = x.device
+    hidden = params["fc1_w"].shape[0]
+    lib = build.load("swin_block")
+    stream = _stream(dev)
+    M = BW * N
+    p = params
+
+    def gemm(a, w, b, res, n, k, gelu, dp=None, pre=None):
+        out = torch.empty((M, n), dtype=torch.bfloat16, device=dev)
+        build.check(lib.kvq_gemm(
+            _ptr(a), _ptr(w), _ptr(b), _ptr(res), _ptr(out), M, n, k,
+            int(gelu), _ptr(dp), N, _ptr(pre), stream,
+        ), "swin block gemm")
+        return out
+
+    def norm(a, g, b):
+        out = torch.empty_like(a)
+        build.check(lib.kvq_layernorm(
+            _ptr(a), _ptr(g), _ptr(b), _ptr(out), M, C, LN_EPS, stream,
+        ), "swin block layernorm")
+        return out
+
+    with torch.cuda.device(dev):
+        y1 = norm(x, p["norm1_scale"], p["norm1_bias"])
+        qkv = gemm(y1, p["qkv_w"], p["qkv_b"], None, 3 * C, C, False)
+        att = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
+        lse = (torch.empty((BW, h, N), dtype=torch.float32, device=dev)
+               if keep else None)
+        build.check(lib.kvq_window_attention(
+            _ptr(qkv), _ptr(rel_bias), _ptr(frag_bias), _ptr(att), BW, N, C,
+            h, *_geometry_args(geo), scale, _ptr(lse), stream,
+        ), "swin block window attention")
+        x1 = gemm(att, p["proj_w"], p["proj_b"], x, C, C, False, dp1)
+        y2 = norm(x1, p["norm2_scale"], p["norm2_bias"])
+        pre = (torch.empty((M, hidden), dtype=torch.bfloat16, device=dev)
+               if keep else None)
+        hmid = gemm(y2, p["fc1_w"], p["fc1_b"], None, hidden, C, True,
+                    pre=pre)
+        if keep:
+            return dict(y1=y1, qkv=qkv, att=att, lse=lse, x1=x1, y2=y2,
+                        pre=pre, hmid=hmid)
+        out = gemm(hmid, p["fc2_w"], p["fc2_b"], x1, C, hidden, False, dp2)
+    return out.view(BW, N, C)
+
+
 def fused_swin_block(x, params, rel_bias, frag_bias, geo: WindowGeometry,
                      scale=None):
-    """K1.  x: (BW, N, C) partitioned+rolled tokens; params as for
+    """K1, the eval block: no gradient flows through it (training takes K4,
+    :func:`~kvq_tpu_torch.ops.train_attention.train_swin_block`).
+    x: (BW, N, C) partitioned+rolled tokens; params as for
     :func:`fused_swin_block_plain`; rel/frag: (h, N, N) float32 planes
     (frag None when the stage has no fragment bias).  Returns the block
     output (BW, N, C)."""
@@ -211,74 +315,23 @@ def fused_swin_block(x, params, rel_bias, frag_bias, geo: WindowGeometry,
     if (frag_bias is not None) != geo.use_frag:
         raise ValueError("fused_swin_block: frag_bias must be given exactly "
                          "when geo.use_frag")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, rel_bias, frag_bias, *params.values())
+    ):
+        raise RuntimeError("fused_swin_block is the eval kernel and has no "
+                           "backward: run it under torch.no_grad(), or "
+                           "train through train_swin_block")
     scale = hd ** -0.5 if scale is None else float(scale)
     if x.device.type == "cpu":
         return fused_swin_block_plain(x, params, rel_bias, frag_bias, geo,
                                       scale)
     if x.device.type != "cuda":
         raise ValueError(f"fused_swin_block: unsupported device {x.device}")
-    hidden = params["fc1_w"].shape[0]
-    if x.dtype != torch.bfloat16 or any(
-        params[k].dtype != torch.bfloat16 for k in _BLOCK_KEYS
-    ):
-        raise TypeError("fused_swin_block: x and the block weights must be "
-                        "bfloat16 on CUDA")
-    if rel_bias.dtype != torch.float32 or (
-        frag_bias is not None and frag_bias.dtype != torch.float32
-    ):
-        raise TypeError("fused_swin_block: bias planes must be float32")
-    if hd not in (32, 64) or C % 8 or hidden % 8:
-        raise ValueError(f"fused_swin_block: unsupported C={C}, head_dim={hd}"
-                         f", hidden={hidden}")
-    if rel_bias.shape != (h, N, N) or (
-        frag_bias is not None and frag_bias.shape != (h, N, N)
-    ):
-        raise ValueError("fused_swin_block: bias planes must be (h, N, N)")
-    expect = {"qkv_w": (3 * C, C), "proj_w": (C, C), "fc1_w": (hidden, C),
-              "fc2_w": (C, hidden)}
-    for k, shape in expect.items():
-        if tuple(params[k].shape) != shape:
-            raise ValueError(f"fused_swin_block: {k} is "
-                             f"{tuple(params[k].shape)}, expected {shape}")
-    dev = x.device
-    _check_cuda("fused_swin_block", dev, x=x, rel_bias=rel_bias,
-                frag_bias=frag_bias, **{k: params[k] for k in _BLOCK_KEYS})
-    lib = build.load("swin_block")
-    stream = _stream(dev)
-    M = BW * N
-    p = params
-
-    def gemm(a, w, b, res, n, k, gelu):
-        out = torch.empty((M, n), dtype=torch.bfloat16, device=dev)
-        build.check(lib.kvq_gemm(
-            _ptr(a), _ptr(w), _ptr(b), _ptr(res), _ptr(out), M, n, k,
-            int(gelu), stream,
-        ), "fused_swin_block gemm")
-        return out
-
-    def norm(a, g, b):
-        out = torch.empty_like(a)
-        build.check(lib.kvq_layernorm(
-            _ptr(a), _ptr(g), _ptr(b), _ptr(out), M, C, LN_EPS, stream,
-        ), "fused_swin_block layernorm")
-        return out
-
-    ints = ctypes.c_int * 3
-    with torch.cuda.device(dev):
-        y1 = norm(x, p["norm1_scale"], p["norm1_bias"])
-        qkv = gemm(y1, p["qkv_w"], p["qkv_b"], None, 3 * C, C, False)
-        att = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
-        build.check(lib.kvq_window_attention(
-            _ptr(qkv), _ptr(rel_bias), _ptr(frag_bias), _ptr(att), BW, N, C,
-            h, ints(*geo.dims), ints(*geo.window), ints(*geo.shift),
-            ints(*geo.fragments), scale, stream,
-        ), "fused_swin_block window attention")
-        x1 = gemm(att, p["proj_w"], p["proj_b"], x, C, C, False)
-        y2 = norm(x1, p["norm2_scale"], p["norm2_bias"])
-        hmid = gemm(y2, p["fc1_w"], p["fc1_b"], None, hidden, C, True)
-        out = gemm(hmid, p["fc2_w"], p["fc2_b"], x1, C, hidden, False)
+    check_block_args("fused_swin_block", x, params, rel_bias, frag_bias, geo)
+    out = block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale)
     fused_swin_block.launches += 1
-    return out.view(BW, N, C)
+    return out
 
 
 fused_swin_block.launches = 0

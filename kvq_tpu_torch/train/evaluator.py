@@ -11,8 +11,6 @@ batch N+1 has been dispatched.
 
 from __future__ import annotations
 
-import collections
-from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -25,6 +23,7 @@ from ..data.pipeline import (
     host_tensors,
     pad_batch_rows,
     prefetch_to_device,
+    prepared_in_background,
     reshape_for_clips,
     view_dtype,
 )
@@ -49,20 +48,6 @@ class Evaluator:
         return (batch, n), host_tensors(rb, self.cast,
                                         pin=self.device.type == "cuda")
 
-    def _host_batches(self, batches: Iterable[dict]) -> Iterator:
-        """Prepared batches in input order.  The pad and the bf16 pre-cast
-        run on one worker thread, up to ``depth`` batches ahead: the cast
-        releases the interpreter lock, so it overlaps the main thread's
-        dispatch of the forward."""
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            ahead: collections.deque = collections.deque()
-            for batch in batches:
-                ahead.append(pool.submit(self._prepare, batch))
-                if len(ahead) > self.depth:
-                    yield ahead.popleft().result()
-            while ahead:
-                yield ahead.popleft().result()
-
     def _collect(self, n: int, out) -> list[float]:
         per_video = (out.float().cpu().numpy()
                      .reshape(self.eval_batch_size, -1).mean(axis=1))
@@ -74,7 +59,8 @@ class Evaluator:
         self.model.eval()
         pending = []
         for (batch, n), dev in prefetch_to_device(
-            self._host_batches(batches), self.device, self.depth
+            prepared_in_background(self._prepare, batches, self.depth),
+            self.device, self.depth,
         ):
             out = self.model(dev, reduce_scores=True)
             if isinstance(out, tuple):

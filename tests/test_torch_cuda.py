@@ -7,14 +7,20 @@ up JAX) cannot load:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: both sides compute in bf16 and round at different points, so
-they differ by a few bf16 ulps of the output scale.
+they differ by a few bf16 ulps of the output scale.  Gradients are held to
+5e-2 of each gradient's own largest magnitude: they go through up to six
+bf16-rounded products, and the kernels sum weight and bias-plane gradients
+with f32 atomics in a different order than the plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from kvq_tpu_torch.ops import train_attention as TA
 from kvq_tpu_torch.ops import window_attention as TWA
+
+GRAD_TOL = 5e-2
 
 
 def _block_inputs(dims, window, shift, use_frag, C, h, seed=0):
@@ -86,3 +92,93 @@ def test_attention_nobias_kernel_matches_plain(cuda, hd):
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     with pytest.raises(TypeError):
         TWA.flash_attention_nobias_cl(q.float(), k, v, h)
+
+
+def _grad_close(name, got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= GRAD_TOL * max(scale, 1e-6), (name, err, scale)
+
+
+def _multipliers(BW, seed, device):
+    keep = np.random.default_rng(seed).random(BW) < 0.8
+    return torch.from_numpy(np.where(keep, 1 / 0.8, 0.0).astype(np.float32)
+                            ).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,use_frag", [((0, 0, 0), True),
+                                            ((2, 3, 3), True),
+                                            ((2, 0, 0), False)])
+def test_train_swin_block_kernels_match_plain(cuda, shift, use_frag):
+    dims, window = (8, 14, 14), (4, 7, 7)
+    x, params, rel, frag, geo = _block_inputs(dims, window, shift, use_frag,
+                                              C=64, h=2)
+    bf = torch.bfloat16
+    x = x.to(cuda, bf)
+    params = {k: v.to(cuda, bf) for k, v in params.items()}
+    rel = rel.to(cuda)
+    frag = None if frag is None else frag.to(cuda)
+    dp1, dp2 = _multipliers(len(x), 1, cuda), _multipliers(len(x), 2, cuda)
+    scale = geo.head_dim ** -0.5
+    dout = torch.randn(x.shape, generator=torch.Generator(device=cuda)
+                       .manual_seed(3), device=cuda).to(bf)
+    before = (TA.train_swin_block.launches, TA.train_swin_block_bwd.launches)
+    out = TA.train_swin_block_fwd(x, params, rel, frag, geo, scale, dp1, dp2)
+    dx, g, drel, dfrag = TA.train_swin_block_bwd(x, params, rel, frag, geo,
+                                                 scale, dp1, dp2, dout)
+    torch.cuda.synchronize()
+    assert (TA.train_swin_block.launches, TA.train_swin_block_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    ref = TWA.fused_swin_block_plain(x, params, rel, frag, geo, scale, dp1,
+                                     dp2)
+    rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(
+        x, params, rel, frag, geo, scale, dp1, dp2, dout)
+    tol = 3e-2 * max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    _grad_close("dx", dx, rdx)
+    _grad_close("drel", drel, rdrel)
+    if use_frag:
+        _grad_close("dfrag", dfrag, rdfrag)
+    for k in g:
+        assert g[k].dtype == torch.float32
+        _grad_close(k, g[k].reshape(rg[k].shape), rg[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,use_frag", [((0, 0, 0), True),
+                                            ((2, 3, 3), True),
+                                            ((2, 0, 0), False)])
+def test_window_attention_train_kernels_match_plain(cuda, shift, use_frag):
+    dims, window, h, hd = (8, 14, 14), (4, 7, 7), 3, 32
+    geo = TWA.WindowGeometry(batch=2, dims=dims, window=window, shift=shift,
+                             fragments=(1, 7, 7), num_heads=h, head_dim=hd,
+                             use_frag=use_frag)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    N, BW = geo.n_tokens, geo.batch * geo.n_windows
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+
+    q, k, v = (rnd(BW, h, N, hd).bfloat16() for _ in range(3))
+    rel = rnd(h, N, N)
+    frag = rnd(h, N, N) if use_frag else None
+    dout = rnd(BW, h, N, hd).bfloat16()
+    scale = hd ** -0.5
+    out, lse = TA.window_attention_train_fwd(q, k, v, rel, frag, geo, scale)
+    grads = TA.window_attention_train_bwd(q, k, v, rel, frag, geo, scale,
+                                          out, lse, dout)
+    torch.cuda.synchronize()
+    ref = TA.window_attention_train_plain(q, k, v, rel, frag, geo, scale)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2 * max(
+        1.0, ref.float().abs().max().item())
+    want = TA.window_attention_train_bwd_plain(q, k, v, rel, frag, geo,
+                                               scale, out, dout)
+    for name, a, b in zip(("dq", "dk", "dv", "drel", "dfrag"), grads, want):
+        if b is not None:
+            _grad_close(name, a, b)
+    # through autograd: the module path's call
+    qg = q.clone().requires_grad_()
+    y = TA.window_attention_train(qg, k, v, rel, frag, geo)
+    y.backward(dout)
+    _grad_close("autograd dq", qg.grad, want[0])
