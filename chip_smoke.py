@@ -1,29 +1,40 @@
 #!/usr/bin/env python3
-"""Runs the port's main paths — KSVQE eval scoring and KSVQE training — on
-one NVIDIA GPU.
+"""Runs the port's main paths — KSVQE eval scoring, Swin-T-3D eval scoring
+(the swin_tiny_grpb model key) and KSVQE training — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 1. prints the card's name and power limit;
 2. builds the CUDA kernels from ``kvq_tpu_torch/ops/csrc`` (nvcc, sm_90a);
 3. holds K1 (fused_swin_block) against its plain version at each shipped
-   stage geometry, unshifted and shifted, and K2 (flash_attention_nobias_cl)
-   at the nine CDM shapes, on seeded bf16 inputs;
+   stage geometry and at swin_tiny_grpb_m's stages 0-1 ((4, 4, 4) windows),
+   unshifted and shifted, and K2 (flash_attention_nobias_cl) at the nine
+   CDM shapes, on seeded bf16 inputs;
 4. holds K4 (train_swin_block, forward and backward) at the train
    geometries of stages 0-2 and K5 (window_attention_train, forward and
    backward) at stage 3's, unshifted and shifted, with DropPath
    multipliers, output and every gradient against the plain versions;
-5. builds KSVQE + VQAHead at full width from seeded random weights in bf16,
+5. holds K3 (flash_window_attention_packed) at the four padded stage
+   geometries of the Swin-T-3D path and at swin_tiny_grpb_m's padded
+   stages 2-3, unshifted and shifted, K6
+   (flash_window_attention) at stage 0's in head-major layout and K7
+   (flash_attention_nobias) at the nine CDM shapes in head-major layout,
+   against their plain versions and scaled_dot_product_attention;
+6. builds KSVQE + VQAHead at full width from seeded random weights in bf16,
    scores a few batches of the shipped eval shapes through the evaluator
    (``inference_test``), checks finite scores and 12 K1 + 9 K2 launches per
    forward, and compares the kernel path's score with the plain path's;
-6. trains the same model at full width through ``Trainer`` (f32 masters,
+7. does the same for swin_tiny_grpb + VQAHead on the technical view of the
+   KVQ val config (B=1, 96x288x288 as one clip): 12 K3 launches per forward
+   and no other kernel; then one forward of swin_tiny_grpb_m (4 K1 and 8 K3
+   launches at N=64) against its plain path;
+8. trains the same model at full width through ``Trainer`` (f32 masters,
    bf16 compute) on seeded batches of the shipped train shapes (B=4, T=32):
    one kernel-path step against one plain-path step from the same weights
    and seed (loss and every gradient), then timed steps that must launch
    K4 10 + 10 and K5 2 + 2 times each, with a finite loss, finite updated
    parameters and a moving EMA;
-7. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
+9. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
    records, and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is absent, when the package is not
@@ -117,6 +128,37 @@ KSVQE_CONFIG = {  # the model block of config/Kwai_KSVQE.yml
 }
 
 
+# The Swin-T-3D model keys score the technical view with no QRS in front: at
+# the KVQ val view of config/Kwai_KSVQE_test.yml (9x9 fragments of 32 px, 3
+# clips of 32 frames scored as one 96-frame clip) the trunk runs at
+# 48x72x72 tokens, which no stage's (8, 7, 7) window divides: every block
+# pads and takes K3.
+SWIN_STAGES = [  # (dims after patch embed/merges, C, heads, frag bias)
+    ((48, 72, 72), 96, 3, True),
+    ((48, 36, 36), 192, 6, True),
+    ((48, 18, 18), 384, 12, True),
+    ((48, 9, 9), 768, 24, False),
+]
+SWIN_REPS = (1, 1, 3, 1)  # unshifted/shifted pairs per forward: depth / 2
+# swin_tiny_grpb_m on the same view: its (4, 4, 4) windows divide stages 0-1
+# (K1 at N=64) and pad stages 2-3 to 48x20x20 and 48x12x12 (K3 at N=64); no
+# fragment bias on any stage
+GRPB_M_WINDOW = (4, 4, 4)
+GRPB_M_STAGES = [(dims, C, h, False) for dims, C, h, _ in SWIN_STAGES]
+
+
+def swin_config(key: str, use_pallas: bool = True) -> dict:
+    """The model block of a Swin-T-3D key (reference FAST-VQA configs:
+    VQAHead on 768 channels, 64 hidden)."""
+    return {"name": key, "model": {
+        "type": key, "compute_dtype": "bfloat16",
+        "args": {key: {
+            "backbone": {"checkpoint": False, "use_pallas": use_pallas},
+            "head": {"in_channels": 768, "hidden_channels": 64},
+        }},
+    }}
+
+
 TRAIN_CONFIG = {  # config/Kwai_KSVQE.yml's schedule, optimizer and EMA
     **KSVQE_CONFIG,
     "num_epochs": 50, "warmup_epochs": 2.5, "ema": True, "ema_decay": 0.999,
@@ -163,15 +205,17 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 # kernel phases
 
 
-def block_case(stage: int, shifted: bool, gen, stages=STAGES, batch=1):
+def block_case(stage: int, shifted: bool, gen, stages=STAGES, batch=1,
+               window=(8, 7, 7)):
     import torch
 
     from kvq_tpu_torch.nn.swin import expand_bias_planes, get_window_size
     from kvq_tpu_torch.ops.window_attention import WindowGeometry
 
     dims, C, h, use_frag = stages[stage]
-    win, shift = get_window_size(dims, (8, 7, 7),
-                                 (4, 3, 3) if shifted else (0, 0, 0))
+    win, shift = get_window_size(
+        dims, window,
+        tuple(w // 2 for w in window) if shifted else (0, 0, 0))
     geo = WindowGeometry(batch=batch, dims=dims, window=win, shift=shift,
                          fragments=(1, 7, 7), num_heads=h, head_dim=C // h,
                          use_frag=use_frag)
@@ -196,9 +240,9 @@ def block_case(stage: int, shifted: bool, gen, stages=STAGES, batch=1):
         "fc2_w": rnd(C, hid, scale=hid ** -0.5).to(bf),
         "fc2_b": rnd(C, scale=0.1).to(bf),
     }
-    tl = 15 * 13 * 13
-    rel = expand_bias_planes(rnd(tl, h, scale=0.5), (8, 7, 7), N)
-    frag = (expand_bias_planes(rnd(tl, h, scale=0.5), (8, 7, 7), N)
+    tl = math.prod(2 * w - 1 for w in window)
+    rel = expand_bias_planes(rnd(tl, h, scale=0.5), window, N)
+    frag = (expand_bias_planes(rnd(tl, h, scale=0.5), window, N)
             if use_frag else None)
     x = rnd(BW, N, C).to(bf)
     flops = 2 * BW * N * (12 * C * C) + 4 * BW * h * N * N * (C // h)
@@ -227,7 +271,10 @@ def attention_cases(gen):
 
 
 def kernel_phase(card: str):
-    """K1 and K2 against their plain versions; returns timing records."""
+    """K1 and K2 against their plain versions; returns timing records.
+    K1 runs at KSVQE's four stage geometries, whose times make up its
+    record, and at swin_tiny_grpb_m's stages 0-1 ((4, 4, 4) windows,
+    N=64), checked and printed."""
     import torch
     import torch.nn.functional as F
 
@@ -236,9 +283,16 @@ def kernel_phase(card: str):
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = {"ms": 0.0, "plain_ms": 0.0, "bound": [0.0, 0.0], "err": 0.0,
           "rows": []}
-    for stage in range(4):
+    # (model, stage, stage table, window, unshifted/shifted pairs per KSVQE
+    # forward: depth / 2 of depths (2, 2, 6, 2); 0 outside that forward)
+    cases = [("KSVQE", s, STAGES, (8, 7, 7), (1, 1, 3, 1)[s])
+             for s in range(4)]
+    cases += [("swin_tiny_grpb_m", s, GRPB_M_STAGES, GRPB_M_WINDOW, 0)
+              for s in range(2)]
+    for model, stage, stages, window, reps in cases:
         for shifted in (False, True):
-            args, flops, nbytes = block_case(stage, shifted, gen)
+            args, flops, nbytes = block_case(stage, shifted, gen, stages,
+                                             window=window)
             out = WA.fused_swin_block(*args)
             ref = WA.fused_swin_block_plain(*args)
             torch.cuda.synchronize()
@@ -249,22 +303,22 @@ def kernel_phase(card: str):
             pms = cuda_ms(lambda: WA.fused_swin_block_plain(*args), 5)
             b, by = bound_ms(nbytes, flops)
             geo = args[4]
-            print(f"K1 stage{stage} shift={geo.shift} BW={geo.n_windows} "
+            print(f"K1 {model} stage{stage} shift={geo.shift} "
+                  f"BW={geo.n_windows} N={geo.n_tokens} "
                   f"C={args[0].shape[2]}: max|d|={err:.4g} "
                   f"(tol {K1_TOL * scale:.4g}) kernel {ms:.4f} ms, plain "
                   f"{pms:.4f} ms, bound {b:.4f} ms ({by}); {card}",
                   flush=True)
             if not ok:
-                fail(f"K1 stage {stage} shift {geo.shift}: max|d| {err}")
-            # a forward runs each stage's unshifted/shifted pair
-            # depth/2 times: depths (2, 2, 6, 2)
-            reps = (1, 1, 3, 1)[stage]
+                fail(f"K1 {model} stage {stage} shift {geo.shift}: "
+                     f"max|d| {err}")
             k1["ms"] += reps * ms
             k1["plain_ms"] += reps * pms
             k1["bound"][0] += reps * nbytes / PEAK_BYTES * 1e3
             k1["bound"][1] += reps * flops / PEAK_BF16_FLOPS * 1e3
             k1["err"] = max(k1["err"], err)
-            k1["rows"].append((stage, geo.shift, err, ms, pms, b, by))
+            k1["rows"].append((model, stage, geo.n_tokens, geo.shift, err,
+                               ms, pms, b, by))
             del args
     k2 = {"ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound": [0.0, 0.0],
           "err": 0.0, "rows": []}
@@ -480,6 +534,154 @@ def train_kernel_phase(card: str):
     return k4f, k4b, k5f, k5b
 
 
+def padded_geometry(dims, C, h, use_frag, shifted, window=(8, 7, 7)):
+    """The geometry K3 runs at for a block over ``dims`` tokens (B=1): the
+    window and shift after clamping, the dims padded to whole windows."""
+    from kvq_tpu_torch.nn.swin import get_window_size
+    from kvq_tpu_torch.ops.window_attention import WindowGeometry
+
+    cfg_shift = tuple(w // 2 for w in window) if shifted else (0, 0, 0)
+    win, shift = get_window_size(dims, window, cfg_shift)
+    padded = tuple(d + (w - d % w) % w for d, w in zip(dims, win))
+    return WindowGeometry(batch=1, dims=padded, window=win, shift=shift,
+                          fragments=(1, 7, 7), num_heads=h, head_dim=C // h,
+                          use_frag=use_frag)
+
+
+def window_attn_mask(rel, frag, geo):
+    """SDPA's float mask for a window attention at B=1: the gate-blended
+    bias plus the seam mask, (nW, h, N, N) in bf16."""
+    import torch
+
+    from kvq_tpu_torch.ops.window_attention import gate_and_mask
+
+    gate, mask = gate_and_mask(geo, "cuda")
+    if frag is None:
+        bias = rel[None].expand(geo.n_windows, -1, -1, -1)
+    else:
+        g = gate[:, None]
+        bias = rel[None] * g + frag[None] * (1.0 - g)
+    if mask is not None:
+        bias = bias + mask[:, None]
+    return bias.to(torch.bfloat16)
+
+
+def eval_attention_phase(card: str):
+    """K3 at the four stage shapes of the Swin-T-3D path, unshifted and
+    shifted; K6 on stage 0's inputs in head-major layout; K7 at K2's nine
+    CDM shapes in head-major layout.  Each against its plain version and
+    scaled_dot_product_attention; returns timing records."""
+    import torch
+    import torch.nn.functional as F
+
+    from kvq_tpu_torch.nn.swin import expand_bias_planes
+    from kvq_tpu_torch.ops import window_attention as WA
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf = torch.bfloat16
+    k3, k6, k7 = _agg(), _agg(), _agg()
+
+    def check(name, out, ref, tol_rel):
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = tol_rel * max(1.0, ref.float().abs().max().item())
+        if not (math.isfinite(err) and err <= tol):
+            fail(f"{name}: max|d| {err} > tol {tol}")
+        return err, tol
+
+    # (model, stage, stage table, window, unshifted/shifted pairs per
+    # swin_tiny_grpb forward; 0 for swin_tiny_grpb_m's rows, checked and
+    # printed outside that record)
+    cases = [("swin_tiny_grpb", s, SWIN_STAGES, (8, 7, 7), SWIN_REPS[s])
+             for s in range(4)]
+    cases += [("swin_tiny_grpb_m", s, GRPB_M_STAGES, GRPB_M_WINDOW, 0)
+              for s in (2, 3)]
+    for model, stage, stages, window, reps in cases:
+        dims, C, h, use_frag = stages[stage]
+        for shifted in (False, True):
+            geo = padded_geometry(dims, C, h, use_frag, shifted, window)
+            N, BW, hd = geo.n_tokens, geo.n_windows, geo.head_dim
+            scale = hd ** -0.5
+            qkv = torch.randn(BW, N, 3 * C, generator=gen,
+                              device="cuda").to(bf)
+            tables = torch.randn(2, math.prod(2 * w - 1 for w in window), h,
+                                 generator=gen, device="cuda") * 0.5
+            rel = expand_bias_planes(tables[0], window, N)
+            frag = (expand_bias_planes(tables[1], window, N) if use_frag
+                    else None)
+            args = (qkv, rel, frag, geo, scale)
+            tag = (f"K3 {model} stage{stage} dims={geo.dims} "
+                   f"shift={geo.shift}")
+            err, tol = check(tag, WA.flash_window_attention_packed(*args),
+                             WA.flash_window_attention_packed_plain(*args),
+                             K2_TOL)
+            ms = cuda_ms(lambda: WA.flash_window_attention_packed(*args))
+            pms = cuda_ms(lambda: WA.flash_window_attention_packed_plain(
+                *args), 3)
+            qh, kh, vh = (t.contiguous() for t in
+                          qkv.view(BW, N, 3, h, hd).permute(2, 0, 3, 1, 4))
+            amask = window_attn_mask(rel, frag, geo)
+            lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=amask, scale=scale))
+            planes = (1 + use_frag) * h * N * N * 4
+            flops = 4 * BW * h * N * N * hd
+            nbytes = BW * N * 3 * C * 2 + BW * N * C * 2 + planes
+            b, by = bound_ms(nbytes, flops)
+            _add(k3, reps, ms, pms, nbytes, flops, err, lms)
+            k3["rows"].append((model, stage, geo.dims, geo.shift, BW, C, err,
+                               ms, pms, lms, b, by))
+            print(f"{tag} BW={BW} N={N} C={C}: max|d|={err:.4g} (tol "
+                  f"{tol:.4g}) kernel {ms:.4f} ms, plain {pms:.4f} ms, sdpa "
+                  f"{lms:.4f} ms, bound {b:.4f} ms ({by}); {card}",
+                  flush=True)
+            if model == "swin_tiny_grpb" and stage == 0:
+                # K6 on the same inputs, head-major
+                hargs = (qh, kh, vh, rel, frag, geo, scale)
+                tag = f"K6 stage0 shift={geo.shift}"
+                err, tol = check(tag, WA.flash_window_attention(*hargs),
+                                 WA.flash_window_attention_plain(*hargs),
+                                 K2_TOL)
+                ms = cuda_ms(lambda: WA.flash_window_attention(*hargs))
+                pms = cuda_ms(lambda: WA.flash_window_attention_plain(
+                    *hargs), 3)
+                nbytes = 4 * BW * h * N * hd * 2 + planes
+                b, by = bound_ms(nbytes, flops)
+                _add(k6, 1, ms, pms, nbytes, flops, err, lms)
+                k6["rows"].append((0, geo.shift, BW, h, err, ms, pms, lms, b,
+                                   by))
+                print(f"{tag} q/k/v ({BW}, {h}, {N}, {hd}): max|d|={err:.4g} "
+                      f"(tol {tol:.4g}) kernel {ms:.4f} ms, plain {pms:.4f} "
+                      f"ms, sdpa {lms:.4f} ms, bound {b:.4f} ms ({by}); "
+                      f"{card}", flush=True)
+                del hargs
+            del args, qkv, qh, kh, vh, amask, rel, frag
+            torch.cuda.empty_cache()
+    for name, q, k, v, h, scale in attention_cases(gen):
+        X, N, C = q.shape
+        M = k.shape[1]
+        hd = C // h
+        qh, kh, vh = (t.reshape(X, -1, h, hd).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+        tag = f"K7 {name}"
+        err, tol = check(tag, WA.flash_attention_nobias(qh, kh, vh, scale),
+                         WA.attention_nobias_heads_plain(qh, kh, vh, scale),
+                         K2_TOL)
+        ms = cuda_ms(lambda: WA.flash_attention_nobias(qh, kh, vh, scale))
+        pms = cuda_ms(lambda: WA.attention_nobias_heads_plain(
+            qh, kh, vh, scale), 5)
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale))
+        flops = 4 * X * N * M * C
+        nbytes = (2 * N + 2 * M) * X * C * 2
+        b, by = bound_ms(nbytes, flops)
+        _add(k7, 1, ms, pms, nbytes, flops, err, lms)
+        k7["rows"].append((name, err, ms, pms, lms, b, by))
+        print(f"{tag} q{tuple(qh.shape)} kv{tuple(kh.shape)}: max|d|="
+              f"{err:.4g} (tol {tol:.4g}) kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, sdpa {lms:.4f} ms, bound {b:.4f} ms ({by}); "
+              f"{card}", flush=True)
+    return k3, k6, k7
+
+
 N_BATCHES = 8  # scored batches of each timed main-path run
 
 
@@ -499,17 +701,6 @@ def make_batch(rng, i: int) -> dict:
         "video_name": [f"smoke_{i:03d}.mp4"],
         "num_clips": [{"technical": 3}],
     }
-
-
-def profile_forward(model, dev_batch) -> dict:
-    """Device time by kernel family over one eval forward."""
-    import torch
-
-    def forward():
-        with torch.no_grad():
-            model(dev_batch, reduce_scores=True)
-
-    return profile_device(forward)
 
 
 FAMILIES = ("kvq_window_attention", "kvq_attention_bwd", "kvq_gemm",
@@ -532,7 +723,8 @@ def _family(name: str) -> str:
         return "kvq_train_other"
     if "conv" in low or "cudnn" in low or "implicit" in low:
         return "conv (cuDNN)"
-    if "gemm" in low or "cutlass" in low or "sm90" in low:
+    if ("gemm" in low or "cutlass" in low or "sm90" in low
+            or "nvjet" in low):  # nvjet: cuBLASLt's own Hopper kernels
         return "matmul (cuBLAS)"
     return "other"
 
@@ -585,7 +777,6 @@ def main_path(card: str) -> dict:
     from kvq_tpu_torch.data.pipeline import (
         host_tensors, pad_batch_rows, reshape_for_clips)
     from kvq_tpu_torch.models.vqa_network import build_model
-    from kvq_tpu_torch.ops import window_attention as WA
     from kvq_tpu_torch.train.evaluator import Evaluator
 
     t0 = time.time()
@@ -600,14 +791,11 @@ def main_path(card: str) -> dict:
     ev.inference_test(batches[:1], out_path)  # warm-up
     torch.cuda.synchronize()
 
-    WA.fused_swin_block.launches = 0
-    WA.flash_attention_nobias_cl.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     results = ev.inference_test(batches, out_path)
     wall = time.perf_counter() - t0
-    launches = {"fused_swin_block": WA.fused_swin_block.launches,
-                "flash_attention_nobias_cl":
-                    WA.flash_attention_nobias_cl.launches}
+    launches = kernel_counts()
     t0 = time.perf_counter()
     ev.inference_test(batches, out_path + ".again")  # the run-to-run spread
     wall2 = time.perf_counter() - t0
@@ -622,9 +810,10 @@ def main_path(card: str) -> dict:
         fail(f"scores not finite or missing: {scores}")
     if lines != [f"{n},{s}" for n, s in results]:
         fail("output.txt does not hold the scored videos")
-    if launches != {"fused_swin_block": 12 * N_BATCHES,
-                    "flash_attention_nobias_cl": 9 * N_BATCHES}:
-        fail(f"expected 12 K1 and 9 K2 launches per forward, got {launches}")
+    if launches != dict(NO_LAUNCHES, fused_swin_block=12 * N_BATCHES,
+                        flash_attention_nobias_cl=9 * N_BATCHES):
+        fail(f"expected 12 K1 and 9 K2 launches per forward and no other "
+             f"kernel, got {launches}")
     print(f"launches per forward: K1 fused_swin_block "
           f"{launches['fused_swin_block'] // N_BATCHES}, K2 "
           f"flash_attention_nobias_cl "
@@ -663,6 +852,23 @@ def main_path(card: str) -> dict:
         fail("kernel-path features disagree with the plain path")
     del plain, feat_p
 
+    print(f"host prep of one batch (pad, pre-cast, pinned): {prep_ms:.2f} "
+          f"ms; its host-to-device copy: {h2d_ms:.2f} ms", flush=True)
+    prof = forward_timings(model, dev_batch, wall / len(results) * 1e3,
+                           card)
+    prof.update(prep_ms=prep_ms, h2d_ms=h2d_ms)
+    return {"videos_per_s": len(results) / wall,
+            "videos_per_s_again": len(results) / wall2, "launches": launches,
+            "scores": scores, "plain_score": plain_score, "profile": prof}
+
+
+def forward_timings(model, dev_batch, video_ms: float, card: str) -> dict:
+    """One eval forward on a device-resident batch: its device time (CUDA
+    events), the host's dispatch, the profiler's device busy and launch
+    calls, and the card's idle share of the forward and of ``video_ms``,
+    the end-to-end time per scored video."""
+    import torch
+
     def forward():
         with torch.no_grad():
             model(dev_batch, reduce_scores=True)
@@ -676,29 +882,155 @@ def main_path(card: str) -> dict:
         dispatch.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     dispatch_ms = sorted(dispatch)[1]
-    profile_forward(model, dev_batch)  # profiler warm-up
-    prof = profile_forward(model, dev_batch)
+    profile_device(forward)  # profiler warm-up
+    prof = profile_device(forward)
     # idle shares against unprofiled times: the profiler's own wall time
     # carries its tracing overhead
-    video_ms = wall / len(results) * 1e3
     idle_fwd = 1.0 - prof["device_ms"] / fwd_ms
     idle_e2e = 1.0 - prof["device_ms"] / video_ms
-    print(f"host prep of one batch (pad, pre-cast, pinned): {prep_ms:.2f} "
-          f"ms; its host-to-device copy: {h2d_ms:.2f} ms; "
-          f"forward on a device-resident batch: {fwd_ms:.2f} ms; the host's "
+    print(f"forward on a device-resident batch: {fwd_ms:.2f} ms; the host's "
           f"dispatch of one forward (median of 3) {dispatch_ms:.2f} ms; "
           f"profiled forward: wall {prof['wall_ms']:.2f} ms, device busy "
-          f"{prof['device_ms']:.2f} ms; idle share {idle_fwd:.3f} of the "
-          f"forward, {idle_e2e:.3f} of {video_ms:.2f} ms per scored video; "
-          f"by family {json.dumps(prof['families_ms'])}; host syncs "
+          f"{prof['device_ms']:.2f} ms, {prof['launch_calls']} launch calls; "
+          f"idle share {idle_fwd:.3f} of the forward, {idle_e2e:.3f} of "
+          f"{video_ms:.2f} ms per scored video; by family "
+          f"{json.dumps(prof['families_ms'])}; host syncs "
           f"{json.dumps(prof['syncs'])}; {card}", flush=True)
-    prof.update(prep_ms=prep_ms, h2d_ms=h2d_ms, forward_ms=fwd_ms,
-                dispatch_ms=dispatch_ms,
-                video_ms=video_ms,
+    prof.update(forward_ms=fwd_ms, dispatch_ms=dispatch_ms, video_ms=video_ms,
                 idle_share_forward=idle_fwd, idle_share_end_to_end=idle_e2e)
+    return prof
+
+
+def make_swin_batch(rng, i: int) -> dict:
+    """One eval batch of the Swin-T-3D keys in the Loader's format: the
+    technical view, 9x9x32 px fragments of 3 clips of 32 frames."""
+    return {
+        "technical": rng.standard_normal((1, T, 288, 288, 3),
+                                         dtype=np.float32),
+        "label": np.asarray([rng.normal()], np.float32),
+        "video_name": [f"swin_{i:03d}.mp4"],
+        "num_clips": [{"technical": 3}],
+    }
+
+
+def _score_both(config, model, dev_batch):
+    """The kernel path's score and the plain path's (use_pallas off, the
+    same weights) on one device-resident batch; fails past SCORE_TOL."""
+    import torch
+
+    from kvq_tpu_torch.models.vqa_network import build_model
+
+    key = config["model"]["type"]
+    plain_cfg = json.loads(json.dumps(config))
+    plain_cfg["model"]["args"][key]["backbone"]["use_pallas"] = False
+    plain = build_model(plain_cfg, device="cuda",
+                        state_dict=model.state_dict())
+    with torch.no_grad():
+        sk = float(model(dev_batch, reduce_scores=True).float().mean())
+        sp = float(plain(dev_batch, reduce_scores=True).float().mean())
+    del plain
+    torch.cuda.empty_cache()
+    d, tol = abs(sk - sp), SCORE_TOL * max(1.0, abs(sp))
+    print(f"{key}: score kernel path {sk:.6f} vs plain path {sp:.6f}: "
+          f"|d|={d:.3g} (tol {tol:.3g})", flush=True)
+    if not (math.isfinite(sk) and d <= tol):
+        fail(f"{key}: kernel-path score disagrees with the plain path")
+    return sk, sp
+
+
+def swin_path(card: str) -> dict:
+    """swin_tiny_grpb eval at full width through the evaluator (B=1,
+    technical 96x288x288 as one clip): every block takes K3.  Then one
+    forward of swin_tiny_grpb_m on the same input, whose (4, 4, 4) windows
+    send stages 0-1 to K1 and stages 2-3 to K3, both at N=64."""
+    import torch
+
+    from kvq_tpu_torch.data.pipeline import (
+        host_tensors, pad_batch_rows, reshape_for_clips)
+    from kvq_tpu_torch.models.vqa_network import build_model
+    from kvq_tpu_torch.train.evaluator import Evaluator
+
+    config = swin_config("swin_tiny_grpb")
+    t0 = time.time()
+    model = build_model(config, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: swin_tiny_grpb + VQAHead, {n_params} parameters, bf16, "
+          f"seeded random weights; built in {time.time() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(2)
+    batches = [make_swin_batch(rng, i) for i in range(N_BATCHES)]
+    ev = Evaluator(config, model=model, device="cuda")
+    out_path = os.path.join(tempfile.mkdtemp(prefix="kvq_smoke_"), "swin.txt")
+    ev.inference_test(batches[:1], out_path)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results = ev.inference_test(batches, out_path)
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    t0 = time.perf_counter()
+    ev.inference_test(batches, out_path + ".again")  # the run-to-run spread
+    wall2 = time.perf_counter() - t0
+    print(f"swin path: {len(results)} videos scored in {wall:.3f} s = "
+          f"{len(results) / wall:.3f} videos/s, again {wall2:.3f} s = "
+          f"{len(results) / wall2:.3f} videos/s (swin_tiny_grpb eval B=1, "
+          f"technical 96x288x288; {card}); launches {launches} over "
+          f"{N_BATCHES} forwards", flush=True)
+    scores = [sc for _, sc in results]
+    with open(out_path) as f:
+        lines = f.read().splitlines()
+    if len(scores) != N_BATCHES or not all(math.isfinite(x) for x in scores):
+        fail(f"swin scores not finite or missing: {scores}")
+    if lines != [f"{n},{x}" for n, x in results]:
+        fail("swin output does not hold the scored videos")
+    if launches != dict(NO_LAUNCHES,
+                        flash_window_attention_packed=12 * N_BATCHES):
+        fail(f"expected 12 K3 launches per forward and no other kernel, "
+             f"got {launches}")
+    print(f"launches per forward: K3 flash_window_attention_packed "
+          f"{launches['flash_window_attention_packed'] // N_BATCHES}, K1 "
+          f"fused_swin_block {launches['fused_swin_block']}", flush=True)
+
+    t0 = time.perf_counter()
+    hb = host_tensors(reshape_for_clips(pad_batch_rows(batches[0], 1),
+                                        ["swin_tiny_grpb"]),
+                      torch.bfloat16, pin=True)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    dev_batch = {k: v.cuda() for k, v in hb.items()}
+    sk, sp = _score_both(config, model, dev_batch)
+    if abs(sk - scores[0]) > SCORE_TOL * max(1.0, abs(sk)):
+        fail(f"the evaluator's score {scores[0]} is not the forward's {sk}")
+    print(f"host prep of one batch (pad, pre-cast, pinned): {prep_ms:.2f} ms",
+          flush=True)
+    prof = forward_timings(model, dev_batch, wall / len(results) * 1e3, card)
+    prof.update(prep_ms=prep_ms)
+    del model, ev
+    torch.cuda.empty_cache()
+
+    # swin_tiny_grpb_m: one forward, agreement and routing only
+    m_config = swin_config("swin_tiny_grpb_m")
+    m_model = build_model(m_config, device="cuda", seed=1)
+    reset_counts()
+    with torch.no_grad():
+        m_model(dev_batch, reduce_scores=True)
+    torch.cuda.synchronize()
+    m_launches = kernel_counts()
+    print(f"swin_tiny_grpb_m: launches of one forward {m_launches}",
+          flush=True)
+    if m_launches != dict(NO_LAUNCHES, fused_swin_block=4,
+                          flash_window_attention_packed=8):
+        fail(f"swin_tiny_grpb_m: expected 4 K1 and 8 K3 launches, got "
+             f"{m_launches}")
+    mk, mp = _score_both(m_config, m_model, dev_batch)
+    del m_model
+    torch.cuda.empty_cache()
     return {"videos_per_s": len(results) / wall,
             "videos_per_s_again": len(results) / wall2, "launches": launches,
-            "scores": scores, "plain_score": plain_score, "profile": prof}
+            "scores": scores, "score_kernel": sk, "score_plain": sp,
+            "grpb_m": {"launches": m_launches, "score_kernel": mk,
+                       "score_plain": mp},
+            "n_params": n_params, "profile": prof}
 
 
 def make_train_batch(rng, i: int) -> dict:
@@ -720,27 +1052,38 @@ def make_train_batch(rng, i: int) -> dict:
     }
 
 
-def train_counts() -> dict:
+def _counted():
+    """Every kernel wrapper of the port, by name."""
     from kvq_tpu_torch.ops import train_attention as TA
     from kvq_tpu_torch.ops import window_attention as WA
 
-    return {"train_swin_block": TA.train_swin_block.launches,
-            "train_swin_block_bwd": TA.train_swin_block_bwd.launches,
-            "window_attention_train": TA.window_attention_train.launches,
-            "window_attention_train_bwd":
-                TA.window_attention_train_bwd.launches,
-            "fused_swin_block": WA.fused_swin_block.launches,
-            "flash_attention_nobias_cl":
-                WA.flash_attention_nobias_cl.launches}
+    return {"fused_swin_block": WA.fused_swin_block,
+            "flash_attention_nobias_cl": WA.flash_attention_nobias_cl,
+            "flash_window_attention_packed":
+                WA.flash_window_attention_packed,
+            "flash_window_attention": WA.flash_window_attention,
+            "flash_attention_nobias": WA.flash_attention_nobias,
+            "train_swin_block": TA.train_swin_block,
+            "train_swin_block_bwd": TA.train_swin_block_bwd,
+            "window_attention_train": TA.window_attention_train,
+            "window_attention_train_bwd": TA.window_attention_train_bwd}
+
+
+NO_LAUNCHES = {
+    "fused_swin_block": 0, "flash_attention_nobias_cl": 0,
+    "flash_window_attention_packed": 0, "flash_window_attention": 0,
+    "flash_attention_nobias": 0, "train_swin_block": 0,
+    "train_swin_block_bwd": 0, "window_attention_train": 0,
+    "window_attention_train_bwd": 0,
+}
+
+
+def kernel_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def reset_counts() -> None:
-    from kvq_tpu_torch.ops import train_attention as TA
-    from kvq_tpu_torch.ops import window_attention as WA
-
-    for fn in (TA.train_swin_block, TA.train_swin_block_bwd,
-               TA.window_attention_train, TA.window_attention_train_bwd,
-               WA.fused_swin_block, WA.flash_attention_nobias_cl):
+    for fn in _counted().values():
         fn.launches = 0
 
 
@@ -814,20 +1157,20 @@ def train_path(card: str) -> dict:
     t0 = time.perf_counter()
     last = tk.train_epoch(batches[1:])
     wall = time.perf_counter() - t0
-    counts = train_counts()
+    counts = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = TRAIN_STEPS
-    want = {"train_swin_block": 10 * steps, "train_swin_block_bwd": 10 * steps,
-            "window_attention_train": 2 * steps,
-            "window_attention_train_bwd": 2 * steps,
-            "fused_swin_block": 0, "flash_attention_nobias_cl": 0}
+    want = dict(NO_LAUNCHES, train_swin_block=10 * steps,
+                train_swin_block_bwd=10 * steps,
+                window_attention_train=2 * steps,
+                window_attention_train_bwd=2 * steps)
     print(f"train path: {steps} steps in {wall:.3f} s = {steps / wall:.3f} "
           f"steps/s = {steps * TRAIN_B / wall:.3f} videos/s (B={TRAIN_B}, "
           f"T={TRAIN_T}); last losses {last}; launches {counts}; peak "
           f"memory {peak / 2 ** 30:.3f} GiB; {card}", flush=True)
     if counts != want:
         fail(f"expected 10 + 10 K4 and 2 + 2 K5 launches per step and no "
-             f"K1/K2, got {counts}")
+             f"other kernel, got {counts}")
     if not math.isfinite(last["total_loss"]):
         fail(f"train loss not finite: {last}")
     norms = torch.stack(torch._foreach_norm(tk.params))
@@ -904,8 +1247,9 @@ def main() -> int:
 
     k1, k2 = kernel_phase(card)
     k4f, k4b, k5f, k5b = train_kernel_phase(card)
-    reset_counts()
+    k3, k6, k7 = eval_attention_phase(card)
     run = main_path(card)
+    swin = swin_path(card)
     train = train_path(card)
 
     def record(name, source, replaces, agg, launches, lib,
@@ -922,6 +1266,8 @@ def main() -> int:
 
     step = "the calls of one train step (B=4, T=32)"
     tl = train["launches"]
+    sl = swin["launches"]
+    eval_src = "kvq_tpu_torch/ops/csrc/eval_attention.cu"
 
     kernels = [
         record("fused_swin_block", "kvq_tpu_torch/ops/csrc/swin_block.cu",
@@ -945,12 +1291,29 @@ def main() -> int:
                "kvq_tpu_torch/ops/csrc/train_attention.cu",
                "kvq_tpu/ops/window_attention.py:1416", k5b,
                tl["window_attention_train_bwd"], k5b["lib_ms"], step),
+        record("flash_window_attention_packed",
+               "kvq_tpu_torch/ops/csrc/swin_block.cu",
+               "kvq_tpu/ops/window_attention.py:291", k3,
+               sl["flash_window_attention_packed"], k3["lib_ms"],
+               "the calls of one swin_tiny_grpb forward (B=1, 96x288x288)"),
+        record("flash_window_attention", eval_src,
+               "kvq_tpu/ops/window_attention.py:236", k6,
+               sl["flash_window_attention"], k6["lib_ms"],
+               "one unshifted and one shifted call at stage 0's shapes of "
+               "the swin_tiny_grpb path, head-major (no model path)"),
+        record("flash_attention_nobias", eval_src,
+               "kvq_tpu/ops/window_attention.py:440", k7,
+               run["launches"]["flash_attention_nobias"], k7["lib_ms"],
+               "the nine CDM calls of one KSVQE forward, head-major (no "
+               "model path)"),
     ]
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "k1_rows": k1["rows"], "k2_rows": k2["rows"],
                    "k4_fwd_rows": k4f["rows"], "k4_bwd_rows": k4b["rows"],
                    "k5_fwd_rows": k5f["rows"], "k5_bwd_rows": k5b["rows"],
-                   "run": run, "train": train, "kernels": kernels}, f,
+                   "k3_rows": k3["rows"], "k6_rows": k6["rows"],
+                   "k7_rows": k7["rows"], "run": run, "swin": swin,
+                   "train": train, "kernels": kernels}, f,
                   indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,13 @@
 """Weights carried across from the JAX package.
 
 :func:`state_dict_from_jax` takes the JAX package's ``params`` and
-``batch_stats`` trees of a KSVQE ``VQANetwork`` (nested dicts of numpy
-arrays under flax names: ``KSVQE_backbone/...``, ``KSVQE_head/...``) and
-returns the port's ``state_dict``, whose names are the PyTorch reference
-checkpoint's — the names ``kvq_tpu/core/torch_import.py``
-(``convert_ksvqe_full``) reads.  It is that converter's inverse:
+``batch_stats`` trees of a ``VQANetwork`` (nested dicts of numpy arrays
+under flax names: ``<key>_backbone/...``, ``<key>_head/...``) for the KSVQE
+key and the Swin-T-3D keys, and returns the port's ``state_dict``, whose
+names are the PyTorch reference checkpoint's — the names
+``kvq_tpu/core/torch_import.py`` reads (``convert_ksvqe_full``;
+``convert_swin3d`` for a Swin trunk, whose stages the JAX tree keeps under
+``trunk``).  It is that converter's inverse:
 
   - Dense kernel (in, out)        -> Linear weight (out, in)
   - Conv kernel HWIO / DHWIO      -> OIHW / OIDHW
@@ -167,15 +169,20 @@ def _ksvqe(o: _Out, pre: str, p: Mapping, s: Mapping) -> None:
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None = None
                         ) -> dict[str, torch.Tensor]:
-    """JAX VQANetwork (KSVQE key) trees -> the port's state_dict."""
+    """JAX VQANetwork trees (KSVQE and Swin-T-3D keys) -> the port's
+    state_dict."""
     batch_stats = batch_stats or {}
     o = _Out()
-    for key, tree in params.items():
-        if key == "KSVQE_backbone":
-            _ksvqe(o, "KSVQE_backbone.", tree, batch_stats.get(key, {}))
-        elif key == "KSVQE_head":
-            o.conv1x1("KSVQE_head.fc_hid", tree["fc_hid"], 3)
-            o.conv1x1("KSVQE_head.fc_last", tree["fc_last"], 3)
+    for name, tree in params.items():
+        key, _, part = name.rpartition("_")
+        if part == "head":
+            o.conv1x1(f"{name}.fc_hid", tree["fc_hid"], 3)
+            o.conv1x1(f"{name}.fc_last", tree["fc_last"], 3)
+        elif name == "KSVQE_backbone":
+            _ksvqe(o, f"{name}.", tree, batch_stats.get(name, {}))
+        elif part == "backbone" and "trunk" in tree:  # a Swin-T-3D key
+            stages = {k: v for k, v in tree.items() if k != "trunk"}
+            _swin(o, f"{name}.", {**stages, **tree["trunk"]})
         else:
             raise NotImplementedError(f"model key {key!r} is not ported yet")
     return o.sd

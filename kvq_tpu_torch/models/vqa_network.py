@@ -1,7 +1,9 @@
 """Model composition — the counterpart of kvq_tpu/models/vqa_network.py and
 of the reference ``VQA_Network`` (models/model.py:18-121): one
 ``<key>_backbone`` + ``<key>_head`` per key of ``config['model']['args']``.
-Only the KSVQE key is ported so far.
+Ported keys: ``KSVQE`` and the Swin-T-3D keys ``swin_tiny``,
+``swin_tiny_grpb`` (FAST-VQA), ``swin_tiny_grpb_m`` and ``swin_small``, each
+with a VQAHead; ``conv_tiny`` and ``simpleVQA`` are not ported yet.
 
 :func:`build_model` is the eval entry point: it builds on ``device`` (CUDA
 by default), fills every parameter from a seeded ``torch.Generator`` and
@@ -22,6 +24,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..nn.heads import VQAHead
 from ..nn.ksvqe import KSVQE, ksvqe_config
+from ..nn.swin import SWIN_KEYS, SwinTransformer3D, swin_config
 
 # parameters that stay float32 under a bf16 compute dtype, as the JAX
 # package keeps them: the position-bias tables (expanded to f32 planes) and
@@ -41,6 +44,8 @@ def build_backbone(key: str, hypers: dict | None):
     bb = (hypers or {}).get("backbone") or {}
     if key == "KSVQE":
         return KSVQE(ksvqe_config(bb))
+    if key in SWIN_KEYS:
+        return SwinTransformer3D(swin_config(key, bb))
     raise NotImplementedError(f"model key {key!r} is not ported yet")
 
 

@@ -10,10 +10,12 @@ Reference quirks kept for checkpoint parity:
     (swin_backbone.py:291-302).
 
 Routing in :class:`SwinBlock3D` with ``use_pallas`` follows the reference
-(nn/reference_routing.py).  At eval, pad-free dims go through K1
-(:func:`~kvq_tpu_torch.ops.window_attention.fused_swin_block`); padded dims
-take K3 in the JAX package, which is not ported yet: on CUDA they raise
-NotImplementedError, on the CPU they take the plain path.  In training,
+(nn/reference_routing.py).  At eval, pad-free dims that pass the
+reference's gate go through K1
+(:func:`~kvq_tpu_torch.ops.window_attention.fused_swin_block`); every other
+block (token volumes that pad to the window) runs its plain LayerNorm/MLP
+around K3 (:func:`~kvq_tpu_torch.ops.window_attention.
+flash_window_attention_packed`) at the padded geometry.  In training,
 pad-free blocks that pass both of the reference's gates take K4
 (:func:`~kvq_tpu_torch.ops.train_attention.train_swin_block`), and every
 other block runs its plain LayerNorm/MLP around K5
@@ -21,6 +23,10 @@ other block runs its plain LayerNorm/MLP around K5
 wrapper launches its CUDA kernels for CUDA tensors and runs its plain
 version for CPU tensors.  The bias tables get their gradients through the
 gather of :func:`expand_bias_planes`.
+
+:class:`SwinTransformer3D` is the whole Video-Swin trunk of the model keys
+``swin_tiny``, ``swin_tiny_grpb``, ``swin_tiny_grpb_m`` and ``swin_small``
+(presets in :func:`swin_config`).
 """
 
 from __future__ import annotations
@@ -35,11 +41,12 @@ from torch import nn
 from ..ops.train_attention import train_swin_block, window_attention_train
 from ..ops.window_attention import (
     WindowGeometry,
+    flash_window_attention_packed,
     fused_swin_block,
     gate_and_mask,
     window_attention_plain,
 )
-from .layers import DropPath, LayerNorm, Mlp, PatchMerging
+from .layers import DropPath, LayerNorm, Mlp, PatchEmbed3D, PatchMerging
 from .reference_routing import takes_fused_block
 
 
@@ -113,8 +120,8 @@ def _table_len(window):
 
 class WindowAttention3D(nn.Module):
     """W-MSA over flattened windows with dual position-bias tables: the
-    plain (XLA-composition) path, or K5 when a training forward gives the
-    window geometry."""
+    plain (XLA-composition) path, or, given the padded window geometry, K3
+    at eval and K5 in training."""
 
     def __init__(self, dim, num_heads, table_window, frag_bias=False,
                  qkv_bias=True):
@@ -142,12 +149,17 @@ class WindowAttention3D(nn.Module):
 
     def forward(self, x, mask=None, fgate=None, geometry=None):
         # x: (B, nW, N, C); mask/fgate: (nW, N, N) or None; geometry: the
-        # padded window geometry, given for K5
+        # padded window geometry, given for K3 (eval) or K5 (training)
         B, nW, N, C = x.shape
         h = self.num_heads
         hd = C // h
-        qkv = self.qkv(x).view(B, nW, N, 3, h, hd).permute(3, 0, 1, 4, 2, 5)
         rel, frag = self.bias_planes(N)
+        if geometry is not None and not self.training:
+            out = flash_window_attention_packed(
+                self.qkv(x).view(B * nW, N, 3 * C), rel, frag, geometry,
+                hd ** -0.5)
+            return self.proj(out.view(B, nW, N, C))
+        qkv = self.qkv(x).view(B, nW, N, 3, h, hd).permute(3, 0, 1, 4, 2, 5)
         if geometry is not None:
             q, k, v = (t.reshape(B * nW, h, N, hd).contiguous() for t in qkv)
             out = window_attention_train(q, k, v, rel, frag, geometry,
@@ -239,19 +251,21 @@ class SwinBlock3D(nn.Module):
         no_pad = all(d % w == 0 for d, w in zip((D, H, W), window))
         dp1 = self.drop_path.multipliers(B, gen, x.device)
         dp2 = self.drop_path.multipliers(B, gen, x.device)
-        use_k5 = False
-        if self.use_pallas:
+        if self.use_pallas and no_pad:
+            # the gate is decided on the unpadded dims, as the reference's
             probe = self._geometry(B, (D, H, W), window, shift, C)
-            if no_pad and takes_fused_block(probe, C, self.mlp.fc1.out_features,
-                                            self.training):
+            if takes_fused_block(probe, C, self.mlp.fc1.out_features,
+                                 self.training):
                 return self._fused_block(x, window, shift, dp1, dp2)
-            use_k5 = self.training  # K5, at the padded dims below
-            if not self.training and x.is_cuda:
-                raise NotImplementedError(
-                    "this eval block takes flash_window_attention_packed "
-                    "(K3) in the JAX package, which is not ported yet"
-                )
+        x = x + self.drop_path(self._attention(x, window, shift), dp1)
+        return x + self.drop_path(self.mlp(self.norm2(x)), dp2)
 
+    def _attention(self, x, window, shift):
+        """The attention branch: norm1, zero padding to whole windows (the
+        padded tokens are not masked), roll, partition, and W-MSA at the
+        padded geometry — K3 at eval and K5 in training with
+        ``use_pallas``, else the plain path — then back."""
+        B, D, H, W, C = x.shape
         y = self.norm1(x)
         pads = [(w - d % w) % w for d, w in zip((D, H, W), window)]
         if any(pads):
@@ -261,7 +275,7 @@ class SwinBlock3D(nn.Module):
             y = torch.roll(y, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
         geo = self._geometry(B, (Dp, Hp, Wp), window, shift, C)
         y = window_partition(y, window)
-        if use_k5:
+        if self.use_pallas:
             y = self.attn(y, geometry=geo)
         else:
             gate, mask = gate_and_mask(geo, x.device)
@@ -271,8 +285,7 @@ class SwinBlock3D(nn.Module):
             y = torch.roll(y, shifts=tuple(shift), dims=(1, 2, 3))
         if any(pads):
             y = y[:, :D, :H, :W]
-        x = x + self.drop_path(y, dp1)
-        return x + self.drop_path(self.mlp(self.norm2(x)), dp2)
+        return y
 
 
 class BasicLayer(nn.Module):
@@ -303,6 +316,12 @@ class BasicLayer(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class SwinConfig:
+    """kvq_tpu's SwinConfig without remat (``use_checkpoint``), which
+    changes no result, and without the options that no preset and no
+    ``backbone`` override sets (``drop_rate``, ``attn_drop_rate``,
+    ``jump_attention``, ``input_key``): the trunk reads the technical
+    view."""
+
     patch_size: tuple[int, int, int] = (2, 4, 4)
     embed_dim: int = 96
     depths: tuple[int, ...] = (2, 2, 6, 2)
@@ -314,6 +333,31 @@ class SwinConfig:
     frag_biases: tuple[bool, ...] = (True, True, True, False)
     fragments_hw: int = 7
     use_pallas: bool = False
+
+
+_PRESETS = {  # reference models/model.py:30-47
+    # swin_3d_tiny: no fragment biases
+    "swin_tiny": dict(frag_biases=(False,) * 4),
+    # the FAST-VQA reproduction: defaults, fragment biases on stages 0-2
+    "swin_tiny_grpb": dict(),
+    # FAST-VQA-M: small windows, no fragment bias
+    "swin_tiny_grpb_m": dict(window_size=(4, 4, 4), frag_biases=(False,) * 4),
+    "swin_small": dict(depths=(2, 2, 18, 2), frag_biases=(False,) * 4),
+}
+SWIN_KEYS = tuple(_PRESETS)  # the model keys whose backbone is a Swin trunk
+
+
+def swin_config(key: str, backbone_cfg: dict | None) -> SwinConfig:
+    """A model key's preset with the ``backbone`` overrides ``window_size``
+    and ``use_pallas``; ``checkpoint`` (remat) is accepted and changes no
+    result."""
+    kw = dict(_PRESETS[key])
+    bb = backbone_cfg or {}
+    if "window_size" in bb:
+        kw["window_size"] = tuple(bb["window_size"])
+    if "use_pallas" in bb:
+        kw["use_pallas"] = bool(bb["use_pallas"])
+    return SwinConfig(**kw)
 
 
 def make_stages(cfg: SwinConfig) -> nn.ModuleList:
@@ -337,3 +381,30 @@ def make_stages(cfg: SwinConfig) -> nn.ModuleList:
             use_pallas=cfg.use_pallas,
         ))
     return nn.ModuleList(stages)
+
+
+class SwinTransformer3D(nn.Module):
+    """Patch embed + stages + final LayerNorm over ``batch["technical"]``
+    (counterpart of kvq_tpu/nn/swin.py SwinTransformer3D; reference
+    swin_backbone.py:1044-1080).  Parameter names are the reference's
+    (``patch_embed.*``, ``layers.{i}.blocks.{b}.*``,
+    ``layers.{i}.downsample.*``, ``norm.*``).  Takes the batch dict or a
+    (B, T, H, W, 3) tensor; returns (B, T', H', W', num_features)."""
+
+    def __init__(self, config: SwinConfig):
+        super().__init__()
+        self.config = config
+        self.patch_embed = PatchEmbed3D(config.patch_size, config.embed_dim)
+        self.layers = make_stages(config)
+        self.num_features = int(config.embed_dim
+                                * 2 ** (len(config.depths) - 1))
+        self.norm = LayerNorm(self.num_features)
+
+    def forward(self, batch, gen=None):
+        """``gen``: the torch.Generator of a training forward's DropPath
+        draws."""
+        x = batch["technical"] if isinstance(batch, dict) else batch
+        x = self.patch_embed(x.to(self.patch_embed.proj.weight.dtype))
+        for stage in self.layers:
+            x = stage(x, gen)
+        return self.norm(x)

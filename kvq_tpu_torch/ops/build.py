@@ -43,6 +43,14 @@ LIBRARIES = {
             _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _F, _P,
         ),
     },
+    "eval_attention": {
+        "kvq_window_attention_heads": (
+            *(_P,) * 6, _I, _I, _I, _I, _P, _P, _P, _P, _P, _F, _P,
+        ),
+        "kvq_attention_nobias_heads": (
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P,
+        ),
+    },
     "train_attention": {
         "kvq_window_attention_train": (
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _F,

@@ -1,17 +1,20 @@
 // Flash-style multi-head attention for Hopper (sm_90a), bf16 in / bf16 out,
-// f32 softmax statistics.  One template serves two kernels of the port:
+// f32 softmax statistics.  One template serves every forward attention of
+// the port, each layout read through the per-tensor strides of AttnParams:
 //
-//   WINDOW = true   the attention core of K1 (fused_swin_block): Swin window
-//                   attention over partitioned, rolled tokens, with the bias
+//   WINDOW = true   Swin window attention over partitioned, rolled tokens
+//                   (padded to whole windows), with the bias
 //                   rel * gate + frag * (1 - gate) and the -100 seam mask,
-//                   both rebuilt here from token coordinates;
-//   WINDOW = false  K2 (flash_attention_nobias_cl): batched attention with no
-//                   bias or mask, heads split along the channel axis.
+//                   both rebuilt here from token coordinates: the attention
+//                   core of K1 and K4's forward, K3 on the qkv product, K5's
+//                   forward and K6 on head-major q, k, v;
+//   WINDOW = false  batched attention with no bias or mask: K2 with heads
+//                   split along the channel axis, K7 on head-major tensors.
 //
 // Replaces the Pallas kernels _make_block_kernel (attention part),
-// _make_nobias_cl_kernel and, with head-major strides and the row
-// log-sum-exp written out, _make_train_fwd_kernel (K5's forward) of
-// kvq_tpu/ops/window_attention.py.
+// _make_kernel (K3, K6), _make_nobias_cl_kernel (K2), _make_nobias_kernel
+// (K7) and, with the row log-sum-exp written out, _make_train_fwd_kernel
+// (K5's forward) of kvq_tpu/ops/window_attention.py.
 //
 // Bound on this card: at hd = 32/64 the two products do 2*hd FLOPs per
 // score, so the exp and the bias arithmetic per score, not the tensor
@@ -69,6 +72,19 @@ struct AttnParams {
   const float* frag;  // nullptr when the stage has no fragment bias
   int dims[3], win[3], shift[3], frags[3];
 };
+
+// WINDOW only: the padded token volume, effective window and shift, and
+// fragment grid of the windows (token_meta derives the window grid from
+// dims / win, so dims must be the padded volume).
+inline void set_geometry(AttnParams& p, const int* dims, const int* win,
+                         const int* shift, const int* frags) {
+  for (int a = 0; a < 3; ++a) {
+    p.dims[a] = dims[a];
+    p.win[a] = win[a];
+    p.shift[a] = shift[a];
+    p.frags[a] = frags[a];
+  }
+}
 
 // Per-token packed ids: fragment id of the pre-roll coordinate on each axis
 // (8 bits each) and the combined seam segment (segd*9 + segh*3 + segw).

@@ -565,9 +565,12 @@ extern "C" int kvq_scale_rows(const bf16* src, const float* dp, int dp_rows,
   return (int)cudaGetLastError();
 }
 
-// qkv: (BW*N, 3C) from the qkv product; out: (BW*N, C), heads concatenated
-// along C.  rel/frag: (heads, N, N) f32; frag may be null.  lse: (BW,
-// heads, N) f32 row log-sum-exp for the backward, or null.
+// The window attention on the qkv product of K1 and K4's forward, and K3
+// (flash_window_attention_packed, the eval blocks that pad to the window)
+// on its own.  qkv: (BW*N, 3C) from the qkv product; out: (BW*N, C), heads
+// concatenated along C.  rel/frag: (heads, N, N) f32; frag may be null.
+// dims: the padded token volume.  lse: (BW, heads, N) f32 row log-sum-exp
+// for the backward, or null.
 extern "C" int kvq_window_attention(const bf16* qkv, const float* rel,
                                     const float* frag, bf16* out, int BW,
                                     int N, int C, int heads, const int* dims,
@@ -590,11 +593,6 @@ extern "C" int kvq_window_attention(const bf16* qkv, const float* rel,
   p.lse = lse;
   p.rel = rel;
   p.frag = frag;
-  for (int a = 0; a < 3; ++a) {
-    p.dims[a] = dims[a];
-    p.win[a] = win[a];
-    p.shift[a] = shift[a];
-    p.frags[a] = frags[a];
-  }
+  kvq::set_geometry(p, dims, win, shift, frags);
   return (int)kvq::launch_flash_attention<true>(p, C / heads, BW, stream);
 }

@@ -400,16 +400,6 @@ cudaError_t launch_attention_bwd(AttnBwdParams& P, cudaStream_t stream) {
   return launch_bwd_pass<HD, kPassBias>(P, dim3(ntile * ntile, heads, chunks), stream);
 }
 
-void set_geometry(AttnParams& p, const int* dims, const int* win,
-                  const int* shift, const int* frags) {
-  for (int a = 0; a < 3; ++a) {
-    p.dims[a] = dims[a];
-    p.win[a] = win[a];
-    p.shift[a] = shift[a];
-    p.frags[a] = frags[a];
-  }
-}
-
 // Strides of the two layouts: head-major (BW, h, N, hd) tensors (K5), or
 // K4's packed rows, q/k/v as column blocks of (BW*N, 3C) and out/dout as
 // (BW*N, C) with heads along the channels.

@@ -41,31 +41,21 @@ from .window_attention import (
     _linear,
     _ptr,
     _stream,
+    _windows,
     block_forward_cuda,
     check_block_args,
+    check_planes,
+    flash_window_attention_plain,
     fused_swin_block_plain,
     gate_and_mask,
-    window_attention_plain,
 )
 
 # ---------------------------------------------------------------------------
 # plain versions
 
 
-def _windows(t, geo):
-    """(BW, h, N, hd) -> (B, nW, h, N, hd)."""
-    nW = geo.n_windows
-    return t.reshape(t.shape[0] // nW, nW, *t.shape[1:])
-
-
-def window_attention_train_plain(q, k, v, rel_bias, frag_bias, geo, scale):
-    """Plain forward of K5: q/k/v (BW, h, N, hd) -> (BW, h, N, hd)."""
-    gate, mask = gate_and_mask(geo, q.device)
-    out = window_attention_plain(
-        _windows(q, geo), _windows(k, geo), _windows(v, geo),
-        rel_bias.float(), None if frag_bias is None else frag_bias.float(),
-        gate if geo.use_frag else None, mask, scale)
-    return out.reshape(q.shape).to(q.dtype)
+# K5's plain forward is K6's: the same window attention on head-major q, k, v
+window_attention_train_plain = flash_window_attention_plain
 
 
 def window_attention_train_bwd_plain(q, k, v, rel_bias, frag_bias, geo,
@@ -210,26 +200,16 @@ def _check_attention(name, q, k, v, rel_bias, frag_bias, geo):
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match {geo}")
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k and v must have one shape")
-    if (frag_bias is not None) != geo.use_frag:
-        raise ValueError(f"{name}: frag_bias must be given exactly when "
-                         "geo.use_frag")
+    check_planes(name, rel_bias, frag_bias, geo)
     if q.device.type == "cpu":
         return
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError(f"{name}: q, k and v must be bfloat16 on CUDA")
-    if rel_bias.dtype != torch.float32 or (
-        frag_bias is not None and frag_bias.dtype != torch.float32
-    ):
-        raise TypeError(f"{name}: bias planes must be float32")
     if hd != 32:
         raise ValueError(f"{name}: unsupported head_dim {hd} (the backward "
                          "kernel takes 32, the head_dim of every stage)")
-    if rel_bias.shape != (h, N, N) or (
-        frag_bias is not None and frag_bias.shape != (h, N, N)
-    ):
-        raise ValueError(f"{name}: bias planes must be (h, N, N)")
     _check_cuda(name, q.device, q=q, k=k, v=v, rel_bias=rel_bias,
                 frag_bias=frag_bias)
 

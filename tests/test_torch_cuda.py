@@ -62,7 +62,17 @@ def cuda():
                                             ((2, 3, 3), True),
                                             ((2, 3, 3), False)])
 def test_fused_swin_block_kernel_matches_plain(cuda, shift, use_frag):
-    dims, window = (8, 14, 14), (4, 7, 7)
+    _check_fused_swin_block(cuda, (8, 14, 14), (4, 7, 7), shift, use_frag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [(0, 0, 0), (2, 2, 2)])
+def test_fused_swin_block_kernel_matches_plain_n64(cuda, shift):
+    """swin_tiny_grpb_m's (4, 4, 4) windows: N=64, no fragment bias."""
+    _check_fused_swin_block(cuda, (8, 8, 12), (4, 4, 4), shift, False)
+
+
+def _check_fused_swin_block(cuda, dims, window, shift, use_frag):
     x, params, rel, frag, geo = _block_inputs(dims, window, shift, use_frag,
                                               C=64, h=2)
     bf = torch.bfloat16
@@ -182,3 +192,81 @@ def test_window_attention_train_kernels_match_plain(cuda, shift, use_frag):
     y = TA.window_attention_train(qg, k, v, rel, frag, geo)
     y.backward(dout)
     _grad_close("autograd dq", qg.grad, want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,window,shift,use_frag,hd", [
+    ((4, 21, 21), (2, 7, 7), (1, 3, 3), True, 32),   # padded, shifted, frag
+    ((8, 14, 14), (8, 7, 7), (4, 3, 3), True, 32),   # N = 392: ragged tail
+    ((8, 12, 12), (4, 4, 4), (2, 2, 2), False, 64),  # N = 64
+    ((4, 5, 5), (4, 5, 5), (0, 0, 0), True, 32),     # clamped, N = 100
+])
+def test_window_attention_packed_kernel_matches_plain(cuda, dims, window,
+                                                      shift, use_frag, hd):
+    h = 3
+    geo = TWA.WindowGeometry(batch=2, dims=dims, window=window, shift=shift,
+                             fragments=(1, 7, 7), num_heads=h, head_dim=hd,
+                             use_frag=use_frag)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    N, BW = geo.n_tokens, geo.batch * geo.n_windows
+    qkv = torch.randn(BW, N, 3 * h * hd, generator=gen, device=cuda).bfloat16()
+    rel = torch.randn(h, N, N, generator=gen, device=cuda)
+    frag = torch.randn(h, N, N, generator=gen, device=cuda) if use_frag \
+        else None
+    before = TWA.flash_window_attention_packed.launches
+    out = TWA.flash_window_attention_packed(qkv, rel, frag, geo)
+    ref = TWA.flash_window_attention_packed_plain(qkv, rel, frag, geo,
+                                                  hd ** -0.5)
+    torch.cuda.synchronize()
+    assert TWA.flash_window_attention_packed.launches == before + 1
+    assert out.shape == (BW, N, h * hd) and out.dtype == torch.bfloat16
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2 * scale
+    with pytest.raises(TypeError):
+        TWA.flash_window_attention_packed(qkv.float(), rel, frag, geo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift,use_frag", [((0, 0, 0), True),
+                                            ((2, 3, 3), False)])
+def test_window_attention_heads_kernel_matches_plain(cuda, shift, use_frag):
+    h, hd = 3, 32
+    geo = TWA.WindowGeometry(batch=2, dims=(8, 21, 21), window=(4, 7, 7),
+                             shift=shift, fragments=(1, 7, 7), num_heads=h,
+                             head_dim=hd, use_frag=use_frag)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    N, BW = geo.n_tokens, geo.batch * geo.n_windows
+    # q, k and v as strided column blocks of one tensor: row stride 3 * hd
+    t = torch.randn(BW, h, N, 3 * hd, generator=gen, device=cuda).bfloat16()
+    q, k, v = t.split(hd, dim=-1)
+    rel = torch.randn(h, N, N, generator=gen, device=cuda)
+    frag = torch.randn(h, N, N, generator=gen, device=cuda) if use_frag \
+        else None
+    before = TWA.flash_window_attention.launches
+    out = TWA.flash_window_attention(q, k, v, rel, frag, geo)
+    ref = TWA.flash_window_attention_plain(q, k, v, rel, frag, geo,
+                                           hd ** -0.5)
+    torch.cuda.synchronize()
+    assert TWA.flash_window_attention.launches == before + 1
+    scale = max(1.0, ref.float().abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64])
+def test_attention_nobias_heads_kernel_matches_plain(cuda, hd):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    X, h, N, M = 5, 3, 70, 49
+    q = torch.randn(X, h, N, hd, generator=gen, device=cuda).bfloat16()
+    # k and v read through the strides of a (X, M, h, 2 hd) projection
+    kv = torch.randn(X, M, h, 2 * hd, generator=gen, device=cuda).bfloat16()
+    k, v = kv.permute(0, 2, 1, 3).split(hd, dim=-1)
+    before = TWA.flash_attention_nobias.launches
+    out = TWA.flash_attention_nobias(q, k, v, 0.1)
+    ref = TWA.attention_nobias_heads_plain(q, k, v, 0.1)
+    torch.cuda.synchronize()
+    assert TWA.flash_attention_nobias.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    with pytest.raises(ValueError):  # rows that are not contiguous
+        TWA.flash_attention_nobias(
+            q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
