@@ -20,14 +20,15 @@
 // the window grid from dims / win.  Padded tokens are not masked; they
 // attend and are attended to, as in the reference.
 //
-// Bound on this card: the window kernel at hd = 32 does 4*hd FLOPs of
-// products per score against an exp and the bias blend on the CUDA cores,
-// which set the pace; the bytes (qkv once, out once, the f32 planes) are
-// small beside that.  K7 at the CDM shapes is bound by its bytes.  The
-// design is the template's: one CTA of four warps per 64 query rows of one
-// (batch, head), keys streamed in tiles of 64 with an online softmax, no
-// score matrix in device memory.  Ragged tails (N = 392, 64 at clamped or
-// small windows) are masked in the template.
+// Bound on this card: the bytes (q, k, v and out once, the f32 planes
+// once) for both at their shapes; the window kernel's pace is set by the
+// per-score bias reads from L2 and the exp and blend on the CUDA cores.
+// The design is the shared body's (flash_attention.cuh): four warps per 64
+// query rows of one (batch, head), two windows a CTA sharing the staged
+// bias tiles, scores, probabilities and output in mma.sync registers, K, V
+// and bias streamed in tiles of 64 keys through a cp.async ring with an
+// online softmax, no score matrix in device memory.  Ragged tails (N = 392,
+// 64 at clamped or small windows) are masked there.
 //
 // Plain C interface for ctypes (kvq_tpu_torch/ops/build.py); each entry
 // returns the CUDA error of its launch.

@@ -5,10 +5,11 @@
 // one third of a fused qkv product.  The block-diagonal window packing of
 // the TPU kernel (_plan_nobias) is a TPU tiling choice and is not ported:
 // here one CTA owns 64 query rows of one (x, head) and streams the keys
-// (flash_attention.cuh, WINDOW = false).  Bound on this card: the bytes of
-// q, k, v and the output (at most ~16 MB per call at the CDM shapes); the
-// scores never leave shared memory, so the kernel reads each input once per
-// query tile, and M <= 196 keys keep that to a few tiles.
+// through a cp.async ring (flash_attention.cuh, WINDOW = false).  Bound on
+// this card: the bytes of q, k, v and the output (at most ~16 MB per call
+// at the CDM shapes); the scores never leave registers, so the kernel
+// reads each input once per query tile, and M <= 196 keys keep that to a
+// few tiles.
 //
 // Plain C interface for ctypes (kvq_tpu_torch/ops/build.py); returns the
 // CUDA error of the launch.

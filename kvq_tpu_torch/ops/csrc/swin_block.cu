@@ -92,23 +92,6 @@ __device__ __forceinline__ float gelu_erf_grad(float x) {
          x * 0.39894228040143268f * __expf(-0.5f * x * x);
 }
 
-// 16-byte asynchronous copy global -> shared; zero-fills when !full.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = full ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // One operand tile into a ring slot.  K_MINOR: a 128 x 32 tile of a
 // (rows, ld) matrix whose k axis is contiguous (rows r0.., cols k0..);
 // otherwise a 32 x 128 tile whose rows are k (k0..) and whose 128 columns

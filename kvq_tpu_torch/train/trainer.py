@@ -4,7 +4,9 @@ on one device.
 ``Trainer(config, device="cuda", seed=0)`` builds the network with float32
 master parameters (:func:`~kvq_tpu_torch.models.vqa_network.build_train_model`),
 freezes CLIP (except its adapters) and CONTRIQUE of KSVQE, and sets up
-AdamW with the warmup + cosine schedule and the EMA.  ``train_step(batch)``
+AdamW with the warmup + cosine schedule and the EMA.  It trains the KSVQE
+model key only and raises ``NotImplementedError`` for any other.
+``train_step(batch)``
 runs one step: the forward in the compute dtype with the train routing
 (K4 and K5 on the Swin blocks, the plain CDM), ``total_loss``, the
 backward, the AdamW and schedule steps, the EMA update and ``step + 1``;
@@ -28,7 +30,7 @@ import torch
 from torch.func import functional_call
 
 from ..core.checkpoint import load_checkpoint, save_checkpoint
-from ..core.config import normalize_config
+from ..core.config import model_keys, normalize_config
 from ..core.device import resolve_device
 from ..data.pipeline import (
     prefetch_to_device,
@@ -52,9 +54,15 @@ class Trainer:
                  steps_per_epoch: int = 1):
         self.config = normalize_config(config)
         cfg = self.config
+        for key in model_keys(cfg):
+            # the step unpacks KSVQE's (scores, distortion logits) and its
+            # batch needs KSVQE's views; other keys would fail at the step
+            if key != "KSVQE":
+                raise NotImplementedError(
+                    f"Trainer trains the KSVQE model key only, not {key!r}")
         self.device = resolve_device(device)
         self.model = build_train_model(cfg, self.device, seed)
-        freeze(self.model, KSVQE_FROZEN_PATTERNS)  # KSVQE: the ported key
+        freeze(self.model, KSVQE_FROZEN_PATTERNS)
         self.dtype = compute_dtype(cfg)
         self.cast = view_dtype(cfg)
         opt = cfg.get("optimizer") or {}

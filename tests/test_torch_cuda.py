@@ -90,11 +90,12 @@ def _check_fused_swin_block(cuda, dims, window, shift, use_frag):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 64])
-def test_attention_nobias_kernel_matches_plain(cuda, hd):
+@pytest.mark.parametrize("N,M", [(70, 49), (100, 130)])  # 130: ragged tiles
+def test_attention_nobias_kernel_matches_plain(cuda, hd, N, M):
     gen = torch.Generator(device=cuda).manual_seed(0)
     h, C = 3, 3 * hd
-    q = torch.randn(5, 70, C, generator=gen, device=cuda).bfloat16()
-    kv = torch.randn(5, 49, 3 * C, generator=gen, device=cuda).bfloat16()
+    q = torch.randn(5, N, C, generator=gen, device=cuda).bfloat16()
+    kv = torch.randn(5, M, 3 * C, generator=gen, device=cuda).bfloat16()
     k, v = kv[..., :C], kv[..., C:2 * C]
     out = TWA.flash_attention_nobias_cl(q, k, v, h, C ** -0.5)
     ref = TWA.attention_nobias_plain(q, k, v, h, C ** -0.5)
@@ -155,6 +156,23 @@ def test_train_swin_block_kernels_match_plain(cuda, shift, use_frag):
         _grad_close(k, g[k].reshape(rg[k].shape), rg[k])
 
 
+def _window_scores_plain(q, k, rel, frag, geo, scale):
+    """The plain window scores (BW, h, N, N) in f32: q scaled and rounded as
+    the kernels do, the gate-blended bias and the seam mask."""
+    gate, mask = TWA.gate_and_mask(geo, q.device)
+    nW = geo.n_windows
+    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    s = s.reshape(-1, nW, *s.shape[1:])
+    if frag is None:
+        s = s + rel[None, None]
+    else:
+        g = gate[None, :, None]
+        s = s + rel[None, None] * g + frag[None, None] * (1.0 - g)
+    if mask is not None:
+        s = s + mask[None, :, None]
+    return s.reshape(q.shape[0], *s.shape[2:])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift,use_frag", [((0, 0, 0), True),
                                             ((2, 3, 3), True),
@@ -179,6 +197,11 @@ def test_window_attention_train_kernels_match_plain(cuda, shift, use_frag):
     grads = TA.window_attention_train_bwd(q, k, v, rel, frag, geo, scale,
                                           out, lse, dout)
     torch.cuda.synchronize()
+    # the row log-sum-exp the backward reads: f32 scores on both sides, only
+    # the products' summation order and the kernel's exp2 differ
+    want_lse = _window_scores_plain(q, k, rel, frag, geo, scale).logsumexp(-1)
+    assert lse.shape == (BW, h, N) and lse.dtype == torch.float32
+    assert (lse - want_lse).abs().max().item() <= 1e-3
     ref = TA.window_attention_train_plain(q, k, v, rel, frag, geo, scale)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2 * max(
         1.0, ref.float().abs().max().item())
@@ -200,6 +223,11 @@ def test_window_attention_train_kernels_match_plain(cuda, shift, use_frag):
     ((8, 14, 14), (8, 7, 7), (4, 3, 3), True, 32),   # N = 392: ragged tail
     ((8, 12, 12), (4, 4, 4), (2, 2, 2), False, 64),  # N = 64
     ((4, 5, 5), (4, 5, 5), (0, 0, 0), True, 32),     # clamped, N = 100
+    ((2, 5, 5), (2, 5, 5), (0, 0, 0), False, 32),    # clamped, N = 50
+    # window counts that leave the card's last wave of CTAs part-filled
+    ((8, 7, 21), (8, 7, 7), (4, 3, 3), True, 32),    # 6 windows
+    ((8, 91, 77), (8, 7, 7), (4, 3, 3), True, 32),   # 286 windows
+    ((8, 91, 77), (8, 7, 7), (4, 3, 3), False, 32),
 ])
 def test_window_attention_packed_kernel_matches_plain(cuda, dims, window,
                                                       shift, use_frag, hd):
@@ -254,9 +282,10 @@ def test_window_attention_heads_kernel_matches_plain(cuda, shift, use_frag):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 64])
-def test_attention_nobias_heads_kernel_matches_plain(cuda, hd):
+@pytest.mark.parametrize("N,M", [(70, 49), (100, 130)])  # 130: ragged tiles
+def test_attention_nobias_heads_kernel_matches_plain(cuda, hd, N, M):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    X, h, N, M = 5, 3, 70, 49
+    X, h = 5, 3
     q = torch.randn(X, h, N, hd, generator=gen, device=cuda).bfloat16()
     # k and v read through the strides of a (X, M, h, 2 hd) projection
     kv = torch.randn(X, M, h, 2 * hd, generator=gen, device=cuda).bfloat16()
@@ -270,3 +299,4 @@ def test_attention_nobias_heads_kernel_matches_plain(cuda, hd):
     with pytest.raises(ValueError):  # rows that are not contiguous
         TWA.flash_attention_nobias(
             q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+

@@ -409,6 +409,24 @@ def test_trainer_steps_save_load_resume(tmp_path):
         assert torch.equal(e, f)
 
 
+@pytest.mark.parametrize("key", ["swin_tiny_grpb", "swin_tiny"])
+def test_trainer_refuses_keys_it_cannot_train(key):
+    """Only KSVQE trains: a Swin key is refused at construction, naming
+    the key, before any weight is built; a KSVQE config still builds."""
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    cfg = {"name": "tiny", "model": {
+        "type": key, "compute_dtype": "float32",
+        "args": {key: {"backbone": {"window_size": (2, 4, 4)},
+                       "head": {"in_channels": 768, "hidden_channels": 8}}},
+    }}
+    with pytest.raises(NotImplementedError, match=key):
+        Trainer(cfg, device="cpu", seed=0)
+    tr = Trainer(tiny_config(use_pallas=True, s2d_input=True), device="cpu",
+                 seed=0)
+    assert tr.model.key_names == ["KSVQE"]
+
+
 def test_train_batch_prep():
     from kvq_tpu_torch.data.pipeline import train_host_tensors
 

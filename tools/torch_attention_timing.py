@@ -1,0 +1,262 @@
+#!/usr/bin/env python3
+"""Times the port's forward attention kernels on one NVIDIA GPU, for one or
+more checkouts of the repo in turn, so that two versions of the shared flash
+forward body (``kvq_tpu_torch/ops/csrc/flash_attention.cuh``) compare on one
+card in one run.
+
+    python3 tools/torch_attention_timing.py --root OLD --root NEW \
+        [--out attention_timing.json]
+
+Every kernel that launches the body is timed at chip_smoke.py's shapes:
+K3 at the four padded stage geometries of swin_tiny_grpb and the two of
+swin_tiny_grpb_m, unshifted and shifted; K6 at stage 0's; K2 and K7 at the
+nine CDM shapes; K5's forward at train stage 3; K1 at KSVQE's four stage
+geometries; K4's forward at train stages 0-2.  Each case is first held
+against its plain version (chip_smoke's tolerances) and fails the run past
+them.  Each root runs in a process of its own (its kernels build into its
+own ``ops/_build``), in the order given and then reversed (A B B A), and a
+case's time is the mean of a root's runs.  A case's time is taken twice: CUDA events around 20 calls (the time
+per call as a caller sees it) and the profiler's kernel time of 10 calls
+(device time alone, which differs where the host's dispatch of a call
+outlasts its kernels).  Prints one line per case and version and writes
+every time to ``--out``.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cases(smoke):
+    """(kernel, name, run, plain, tol, nbytes, flops, setup) for each case;
+    ``setup`` builds the inputs on the card and returns the arguments."""
+    out = []
+    for model, stages, window, idx in (
+            ("swin_tiny_grpb", smoke.SWIN_STAGES, (8, 7, 7), range(4)),
+            ("swin_tiny_grpb_m", smoke.GRPB_M_STAGES, smoke.GRPB_M_WINDOW,
+             (2, 3))):
+        for stage in idx:
+            for shifted in (False, True):
+                out.append(("K3", f"{model} stage{stage} shift={int(shifted)}",
+                            (model, stages, window, stage, shifted)))
+    for shifted in (False, True):
+        out.append(("K6", f"stage0 shift={int(shifted)}",
+                    ("swin_tiny_grpb", smoke.SWIN_STAGES, (8, 7, 7), 0,
+                     shifted)))
+    for m in range(9):
+        out.append(("K2", f"cdm case {m}", m))
+        out.append(("K7", f"cdm case {m}", m))
+    for shift in ((0, 0, 0), (4, 0, 0)):
+        out.append(("K5 fwd", f"stage3 shift={shift}", shift))
+    for stage in range(4):
+        for shifted in (False, True):
+            out.append(("K1", f"KSVQE stage{stage} shift={int(shifted)}",
+                        (stage, shifted)))
+    for stage in range(3):
+        for shifted in (False, True):
+            out.append(("K4 fwd", f"train stage{stage} shift={int(shifted)}",
+                        (stage, shifted)))
+    return out
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of one call of ``fn``: the profiler's kernel time over
+    ``calls`` calls, which leaves out the host's share that CUDA events see
+    when a call's kernels are shorter than its dispatch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")) == "DeviceType.CUDA")
+    return us / 1e3 / calls
+
+
+def run_one(root: str, out_path: str) -> None:
+    """Time every case with the package of ``root``; write a JSON list."""
+    sys.path.insert(0, HERE)
+    import chip_smoke as smoke  # this checkout's helpers and shapes
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from kvq_tpu_torch.nn.swin import expand_bias_planes, get_window_size
+    from kvq_tpu_torch.ops import build
+    from kvq_tpu_torch.ops import train_attention as TA
+    from kvq_tpu_torch.ops import window_attention as WA
+
+    assert WA.__file__.startswith(os.path.abspath(root)), WA.__file__
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    cdm = smoke.attention_cases(gen)
+    rows = []
+    for kernel, name, spec in _cases(smoke):
+        if kernel in ("K3", "K6"):
+            model, stages, window, stage, shifted = spec
+            dims, C, h, use_frag = stages[stage]
+            geo = smoke.padded_geometry(dims, C, h, use_frag, shifted, window)
+            N, BW, hd = geo.n_tokens, geo.n_windows, geo.head_dim
+            qkv = torch.randn(BW, N, 3 * C, generator=gen, device="cuda").to(bf)
+            tables = torch.randn(2, math.prod(2 * w - 1 for w in window), h,
+                                 generator=gen, device="cuda") * 0.5
+            rel = expand_bias_planes(tables[0], window, N)
+            frag = (expand_bias_planes(tables[1], window, N) if use_frag
+                    else None)
+            planes = (1 + use_frag) * h * N * N * 4
+            flops = 4 * BW * h * N * N * hd
+            if kernel == "K3":
+                args = (qkv, rel, frag, geo, hd ** -0.5)
+                fn, plain = (WA.flash_window_attention_packed,
+                             WA.flash_window_attention_packed_plain)
+                nbytes = BW * N * 4 * C * 2 + planes
+            else:
+                qh, kh, vh = (t.contiguous() for t in
+                              qkv.view(BW, N, 3, h, hd).permute(2, 0, 3, 1, 4))
+                args = (qh, kh, vh, rel, frag, geo, hd ** -0.5)
+                fn, plain = (WA.flash_window_attention,
+                             WA.flash_window_attention_plain)
+                nbytes = 4 * BW * h * N * hd * 2 + planes
+            tol = smoke.K2_TOL
+        elif kernel in ("K2", "K7"):
+            _, q, k, v, h, scale = cdm[spec]
+            X, N, C = q.shape
+            M = k.shape[1]
+            if kernel == "K2":
+                args = (q, k, v, h, scale)
+                fn, plain = (WA.flash_attention_nobias_cl,
+                             WA.attention_nobias_plain)
+            else:
+                args = tuple(t.reshape(X, -1, h, C // h).transpose(1, 2)
+                             .contiguous() for t in (q, k, v)) + (scale,)
+                fn, plain = (WA.flash_attention_nobias,
+                             WA.attention_nobias_heads_plain)
+            nbytes, flops = (2 * N + 2 * M) * X * C * 2, 4 * X * N * M * C
+            tol = smoke.K2_TOL
+        elif kernel == "K5 fwd":
+            dims, C, h, use_frag = smoke.TRAIN_STAGES[3]
+            win, sh = get_window_size(dims, (8, 7, 7), spec)
+            geo = WA.WindowGeometry(batch=smoke.TRAIN_B, dims=dims, window=win,
+                                    shift=sh, fragments=(1, 7, 7), num_heads=h,
+                                    head_dim=C // h, use_frag=use_frag)
+            N, hd = geo.n_tokens, geo.head_dim
+            BW = smoke.TRAIN_B * geo.n_windows
+            q, k, v = (torch.randn(BW, h, N, hd, generator=gen, device="cuda")
+                       .to(bf) for _ in range(3))
+            rel = expand_bias_planes(torch.randn(
+                15 * 13 * 13, h, generator=gen, device="cuda") * 0.5,
+                (8, 7, 7), N)
+            args = (q, k, v, rel, None, geo, hd ** -0.5)
+            fn = lambda *a: TA.window_attention_train_fwd(*a)[0]  # noqa: E731
+            plain = TA.window_attention_train_plain
+            nbytes = 4 * BW * h * N * hd * 2 + h * N * N * 4 + BW * h * N * 4
+            flops = 4 * BW * h * N * N * hd
+            tol = smoke.K2_TOL
+        elif kernel == "K1":
+            stage, shifted = spec
+            args, flops, nbytes = smoke.block_case(stage, shifted, gen)
+            fn, plain = WA.fused_swin_block, WA.fused_swin_block_plain
+            tol = smoke.K1_TOL
+        else:  # K4's forward
+            stage, shifted = spec
+            (x, params, rel, frag, geo), flops, _ = smoke.block_case(
+                stage, shifted, gen, smoke.TRAIN_STAGES, smoke.TRAIN_B)
+            nW = geo.n_windows
+            dp1 = smoke._multipliers(smoke.TRAIN_B, nW, gen)
+            dp2 = smoke._multipliers(smoke.TRAIN_B, nW, gen)
+            args = (x, params, rel, frag, geo, geo.head_dim ** -0.5, dp1, dp2)
+            fn, plain = TA.train_swin_block_fwd, WA.fused_swin_block_plain
+            BW, N, C = x.shape
+            nbytes = (2 * BW * N * C * 2 + 24 * C * C
+                      + (1 + int(frag is not None)) * geo.num_heads * N * N * 4)
+            tol = smoke.K1_TOL
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        lim = tol * max(1.0, want.float().abs().max().item())
+        if not (math.isfinite(err) and err <= lim):
+            raise SystemExit(f"{kernel} {name}: max|d| {err} > tol {lim}")
+        del got, want
+        ms = smoke.cuda_ms(lambda: fn(*args), 20)
+        b, by = smoke.bound_ms(nbytes, flops)
+        rows.append({"kernel": kernel, "case": name, "ms": ms,
+                     "device_ms": device_ms(lambda: fn(*args)), "err": err,
+                     "bound_ms": b, "bound_by": by})
+        del args
+        torch.cuda.empty_cache()
+    with open(out_path, "w") as f:
+        json.dump(rows, f)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", action="append", default=[],
+                    help="a checkout of the repo (default: this one)")
+    ap.add_argument("--out", default="attention_timing.json")
+    ap.add_argument("--one", nargs=2, metavar=("ROOT", "OUT"),
+                    help=argparse.SUPPRESS)  # a single run, in a subprocess
+    a = ap.parse_args()
+    if a.one:
+        run_one(*a.one)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: CUDA is not available", flush=True)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    labels = a.root or [HERE]
+    order = labels + labels[::-1]
+    os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+    times: dict = {}
+    for i, label in enumerate(order):
+        tmp = f"{a.out}.run{i}"
+        rc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one", label, tmp]
+        ).returncode
+        if rc != 0:
+            print(f"FAIL: the run of {label} exited {rc}", flush=True)
+            return 1
+        with open(tmp) as f:
+            for row in json.load(f):
+                key = (row["kernel"], row["case"])
+                times.setdefault(key, {"bound_ms": row["bound_ms"],
+                                       "bound_by": row["bound_by"]})
+                times[key].setdefault(label, []).append(row["ms"])
+                times[key].setdefault(f"{label} device", []).append(
+                    row["device_ms"])
+                times[key].setdefault(f"{label} max|d|", []).append(row["err"])
+        os.remove(tmp)
+    for (kernel, case), t in times.items():
+        cols = "; ".join(
+            f"{lab}: {sum(t[lab]) / len(t[lab]):.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in t[lab])}), device "
+            f"{sum(t[lab + ' device']) / len(t[lab]):.4f} ms"
+            for lab in labels)
+        print(f"{kernel} {case}: {cols}; bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); {card}", flush=True)
+    with open(a.out, "w") as f:
+        json.dump({"card": card, "versions": labels,
+                   "times": [{"kernel": k, "case": c, **t}
+                             for (k, c), t in times.items()]}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
