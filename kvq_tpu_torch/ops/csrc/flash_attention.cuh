@@ -62,14 +62,14 @@
 // the row sum is taken over the f32 p, and the division by it comes after
 // PV.  Keys past n_kv score -inf.
 //
-// Also here, for the backward (train_attention.cu): the constants of its
-// tiles, load_tile, token_meta and add_window_bias, which rebuilds the
-// forward's scores through the same score rule, window_score.
+// The backward (train_attention.cu) rebuilds the forward's scores from the
+// helpers here (token_meta, window_score, bias_off, copy_tile, the
+// fragment helpers) by the same method.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>  // WMMA: the backward passes and swin_block.cu's GEMM
+#include <mma.h>  // WMMA: swin_block.cu's GEMM
 #include <stdint.h>
 
 namespace kvq {
@@ -81,8 +81,6 @@ constexpr int kBQ = 64;    // query rows per CTA
 constexpr int kBKV = 64;   // keys per streamed tile
 constexpr int kWarps = 4;  // each warp owns 16 query rows
 constexpr int kThreads = kWarps * 32;
-constexpr int kSLd = kBKV + 8;  // backward: f32 score row stride
-constexpr int kPLd = kBKV + 8;  // backward: bf16 probability row stride
 
 struct AttnParams {
   const bf16* q;  // element (b, h, row, d) at b*sq + h*hq + row*ldq + d
@@ -166,73 +164,6 @@ __device__ __forceinline__ float window_score(float s, float rel, float frag,
   s += bias;
   if (seam) s -= 100.f;
   return s;
-}
-
-// Backward: applies window_score to one lane's 32 scores of a query row
-// (token ids qi; bias rows rel_r / frag_r, frag_r null without a fragment
-// bias) against the key tile starting at k0.  Lane columns are
-// hc + 8*j + [0, 4).
-__device__ __forceinline__ void add_window_bias(float (&s)[32], int n_kv,
-                                                const float* rel_r,
-                                                const float* frag_r, int qi,
-                                                const int* sKid, int k0,
-                                                int hc) {
-  const bool vec_bias = n_kv % 4 == 0;  // float4 loads stay aligned
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = hc + 8 * j;
-    float rb[4] = {0.f, 0.f, 0.f, 0.f}, fb[4] = {0.f, 0.f, 0.f, 0.f};
-    if (vec_bias) {
-      if (k0 + c < n_kv) {
-        const float4 rv = *reinterpret_cast<const float4*>(rel_r + k0 + c);
-        rb[0] = rv.x; rb[1] = rv.y; rb[2] = rv.z; rb[3] = rv.w;
-        if (frag_r) {
-          const float4 fv = *reinterpret_cast<const float4*>(frag_r + k0 + c);
-          fb[0] = fv.x; fb[1] = fv.y; fb[2] = fv.z; fb[3] = fv.w;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + c + e < n_kv) {
-          rb[e] = rel_r[k0 + c + e];
-          if (frag_r) fb[e] = frag_r[k0 + c + e];
-        }
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ki = sKid[c + e];
-      s[4 * j + e] = window_score(s[4 * j + e], rb[e], fb[e], frag_r != nullptr,
-                                  frag_r ? frag_gate(qi, ki) : 0.f,
-                                  (qi & 0xff) != (ki & 0xff));
-    }
-  }
-}
-
-// Loads rows [r0, r0 + ROWS) x [0, HD) of one head into shared memory (row
-// stride HD + 8), zero-filling rows >= n.  Optionally scales by `scale` in
-// f32 and rounds back to bf16 (the q tile).
-template <int HD, int ROWS, bool SCALE>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long ld, int r0, int n,
-                                          float scale) {
-  constexpr int kChunks = ROWS * HD / 8;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / (HD / 8);
-    const int col = (c % (HD / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * ld + col);
-      if (SCALE) {
-        bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          e[i] = __float2bfloat16(__bfloat162float(e[i]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * (HD + 8) + col) = val;
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -8,24 +8,65 @@
 // the backward rebuilds the probabilities without recomputing row maxima.
 //
 // Backward (flash style, nothing (N, N) reaches device memory): with
-// p = exp(s - lse) rebuilt from the same scores as the forward (the
-// coordinate-rebuilt gate and seam mask of flash_attention.cuh) and
+// p = exp(s - lse) rebuilt from the same scores as the forward (window_score
+// on staged bias tiles and the coordinate-rebuilt token ids) and
 // D = rowsum(dout * out), ds = p * (dout @ v^T - D), then
 //   dq = scale * ds @ k,   dk = ds^T @ (scale * q),   dv = p^T @ dout,
 //   drel += ds * gate,     dfrag += ds * (1 - gate)   (f32, over windows).
 // Three passes share the score rebuild, so that no output needs atomics
-// except the bias planes: one CTA per (query tile, head, window) sums dq
-// over the key tiles; one per (key tile, head, window) sums dk and dv over
-// the query tiles; one per (query tile, key tile, head, window chunk) sums
-// ds * gate over its chunk of windows in registers and adds it to the
-// planes once (f32 atomics, a few chunks per entry).
+// except the bias planes: one CTA per (query tile, head, two windows) sums
+// dq over the key tiles; one per (key tile, head, two windows) sums dk and
+// dv over the query tiles; one per (query tile, key tile, head, window
+// chunk) sums ds * gate over its chunk of windows in registers and adds it
+// to the planes once (f32 atomics, a few chunks per entry).
 //
-// Bound on this card: operations.  At hd = 32 each score carries 2*hd
-// FLOPs per product; the backward runs five products per score (two of
-// them rebuilt in each pass) against the forward's two, and the
-// per-score exp / bias / gate work on the CUDA cores, not the tensor
-// cores, sets the pace, as in the forward.  The three passes recompute the
-// scores three times: the price of an atomic-free dq/dk/dv.
+// Bound on this card: the bytes (q, k, v, out, dout, dq, dk, dv once, the
+// bias planes and their gradients once; 0.020 ms per stage-3 call of the
+// KSVQE train step) over the operations (five hd-deep products per score,
+// 2.5x the forward's).  The passes run at 15-25x it: each rebuilds the
+// scores (the exp, gate, blend and seam test on the CUDA cores), and the
+// DQ and DK/DV passes copy the bias tiles of every key (query) tile for
+// each pair of windows, 32 of the 48 KB a CTA copies per tile.  Measured
+// on an H100 at train stage 0 (tools/torch_attention_timing.py, PERF.md):
+// a conflict-free swizzle for the DK/DV pass's column-wise bias reads
+// gained nothing over bias_off; the bias pass at 2, 3 and 4 CTAs an SM took
+// 1.18, 0.92 and 1.31 ms.
+//
+// Design, the forward body's method (flash_attention.cuh) in each pass:
+// - Products on mma.sync m16n8k16 fed by ldmatrix; the scores and dP of a
+//   warp's 16 x 16 chunk stay in accumulator registers (rows g and g + 8,
+//   columns 2t + {0, 1}), become p and ds there, and are packed to bf16 A
+//   fragments for the next product, as the forward packs P.  Working one
+//   16-wide chunk at a time (no row max is needed: p = exp(s - lse)) keeps
+//   a thread's live scores at 16 floats.
+// - DQ pass: a warp owns 16 query rows; its scaled q and dout A fragments
+//   are read once from device memory.  K, V and the bias tiles stream
+//   through the forward's own two-stage cp.async ring (copy_tile): one
+//   barrier per key tile, two windows a CTA sharing each staged bias tile.
+//   dq += ds k takes K through ldmatrix.trans; dq is scaled in f32 at the
+//   store.
+// - DK/DV pass: a warp owns 16 keys and computes the transposed tiles,
+//   s^T = k (scale q)^T and dP^T = v dout^T, so that p^T and ds^T leave
+//   the accumulators already as A operands of dv += p^T dout and
+//   dk += ds^T (scale q): no shared-memory p / ds tile and no barrier
+//   between the warps.  The k and v A fragments are read once; q, dout,
+//   their lse and D (indexed by column) and the bias tiles stream through
+//   a two-stage ring.  The bias is read down its columns, one float per
+//   lane, from the tiles as the forward stages them (bias_off): a swizzle
+//   that made those reads free of bank conflicts measured no faster.
+// - Bias pass: the (query tile, key tile) of a CTA is fixed, so its rel
+//   and frag tiles are staged once per CTA, not once per window; each
+//   window's q, dout, k, v tiles, lse, D and token ids stream through a
+//   two-stage ring, window b + 1's copies in flight while window b
+//   computes; the ds * gate and ds * (1 - gate) sums stay in registers.
+// - Each token's packed ids are computed once per CTA (once per window in
+//   the bias pass).  Warps with no row (the ragged last tile: at N = 392,
+//   three of its four) skip the math but keep the copies and barriers;
+//   p is zero past n_q and n_kv.
+//
+// Rounding (the plain version's and the TPU kernel's): q is scaled in f32
+// and rounded to bf16; scores, p = __expf(s - lse), dP and ds are f32; p
+// is rounded to bf16 for dv and ds for dq and dk; the bias sums are f32.
 //
 // Plain C interface for ctypes (kvq_tpu_torch/ops/build.py); every entry
 // returns the CUDA error of its launches.
@@ -34,6 +75,10 @@
 namespace kvq {
 
 enum BwdPass { kPassDQ = 0, kPassDKDV = 1, kPassBias = 2 };
+
+// Windows a CTA of the DQ and DK/DV passes serves, sharing each staged
+// bias tile: the forward's ring layout, whose copy_tile feeds the DQ pass.
+constexpr int kBwdWin = fwd_windows<true>();
 
 struct AttnBwdParams {
   AttnParams a;        // q, k, v, strides, geometry, bias planes, scale
@@ -49,15 +94,6 @@ struct AttnBwdParams {
   int batch;           // windows
   int win_chunk;       // windows per CTA in the bias pass
 };
-
-template <int HD>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(bf16) * 4 * kBQ * (HD + 8)          // sQ, sK, sV, sdO
-         + sizeof(float) * 2 * kWarps * 16 * kSLd   // sS, sdP
-         + sizeof(bf16) * 2 * kBQ * kPLd            // sP, sdS
-         + sizeof(float) * kBQ * (HD + 4)           // output staging
-         + sizeof(int) * 2 * kBQ + sizeof(float) * 2 * kBQ;  // ids, lse, D
-}
 
 // D[b, h, row] = sum_d dout * out, one thread per row.
 __global__ void __launch_bounds__(256)
@@ -82,322 +118,598 @@ attn_dsum_kernel(const bf16* o, const bf16* dout, long long ldo, long long so,
   dsum[i] = acc;
 }
 
-template <int HD>
-struct BwdSmem {
-  static constexpr int kLd = HD + 8;
-  bf16 *sQ, *sK, *sV, *sdO, *sP, *sdS;
-  float *sS, *sdP, *sOut, *sLse, *sD;
-  int *sQid, *sKid;
-  __device__ explicit BwdSmem(unsigned char* raw) {
-    sQ = reinterpret_cast<bf16*>(raw);
-    sK = sQ + kBQ * kLd;
-    sV = sK + kBKV * kLd;
-    sdO = sV + kBKV * kLd;
-    sS = reinterpret_cast<float*>(sdO + kBQ * kLd);
-    sdP = sS + kWarps * 16 * kSLd;
-    sP = reinterpret_cast<bf16*>(sdP + kWarps * 16 * kSLd);
-    sdS = sP + kBQ * kPLd;
-    sOut = reinterpret_cast<float*>(sdS + kBQ * kPLd);
-    sQid = reinterpret_cast<int*>(sOut + kBQ * (HD + 4));
-    sKid = sQid + kBQ;
-    sLse = reinterpret_cast<float*>(sKid + kBKV);
-    sD = sLse + kBQ;
+// ---------------------------------------------------------------------------
+// Copies and fragments.
+
+// Starts the copies of the 64 x 64 tiles of the bias planes at query rows
+// q0.., keys k0.. (zero past n_q / n_kv) by nthr threads, laid out by
+// bias_off.
+template <bool FRAG>
+__device__ __forceinline__ void cp_async_bias(float* sRel, const AttnParams& p,
+                                              int head, int q0, int k0, int tid,
+                                              int nthr) {
+  float* sFrag = sRel + kBQ * kBKV;
+  const long long base = (long long)head * p.n_q * p.n_kv;
+  if (p.n_kv % 4 == 0) {  // 16-byte chunks stay aligned and whole
+    for (int c = tid; c < kBQ * kBKV / 4; c += nthr) {
+      const int r = c / (kBKV / 4), col = (c % (kBKV / 4)) * 4;
+      const bool ok = q0 + r < p.n_q && k0 + col < p.n_kv;
+      const long long off = ok ? base + (long long)(q0 + r) * p.n_kv + k0 + col : 0;
+      const int o = bias_off(r, col);
+      cp_async16(sRel + o, p.rel + off, ok);
+      if (FRAG) cp_async16(sFrag + o, p.frag + off, ok);
+    }
+  } else {
+    for (int c = tid; c < kBQ * kBKV; c += nthr) {
+      const int r = c / kBKV, col = c % kBKV;
+      const bool ok = q0 + r < p.n_q && k0 + col < p.n_kv;
+      const long long off = ok ? base + (long long)(q0 + r) * p.n_kv + k0 + col : 0;
+      const int o = bias_off(r, col);
+      cp_async4(sRel + o, p.rel + off, ok);
+      if (FRAG) cp_async4(sFrag + o, p.frag + off, ok);
+    }
   }
+}
+
+// Starts the copy of element i of 64 f32 of a per-row statistic (lse or D)
+// from row r0, zero past n.
+__device__ __forceinline__ void cp_async_stat(float* dst, const float* src, int r0,
+                                              int n, int i) {
+  const bool ok = r0 + i < n;
+  cp_async4(dst + i, src + (ok ? r0 + i : 0), ok);
+}
+
+// A fragments of 16 rows of one head read from device memory in their
+// register layout (this thread's rows row0 and row0 + 8, columns
+// 2t + {0, 1, 8, 9} of each k16 step), zero past n or when !active;
+// SCALE: times s in f32, rounded back to bf16 (the q scaling).
+template <int HD, bool SCALE>
+__device__ __forceinline__ void load_a_frags(unsigned (&f)[HD / 16][4], const bf16* src,
+                                             long long ld, int row0, int n, bool active,
+                                             int t, float s) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + 8 * (i & 1);
+      const unsigned x = active && row < n
+          ? *reinterpret_cast<const unsigned*>(src + (long long)row * ld + 16 * kk +
+                                               2 * t + 8 * (i >> 1))
+          : 0u;
+      f[kk][i] = SCALE ? scale_bf16x2(x, s) : x;
+    }
+}
+
+// A fragments of rows r0 .. r0 + 15 of a staged tile (row stride HD + 8).
+template <int HD, bool SCALE>
+__device__ __forceinline__ void ldsm_a_frags(unsigned (&f)[HD / 16][4], const bf16* tile,
+                                             int r0, int lane, float s) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    ldsm_x4<false>(f[kk], tile + (r0 + (lane & 15)) * (HD + 8) + 16 * kk + (lane >> 4) * 8);
+    if (SCALE) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[kk][i] = scale_bf16x2(f[kk][i], s);
+    }
+  }
+}
+
+// acc = a x^T for rows 16c .. 16c + 15 of a staged tile x (the scores
+// against 16 keys, or dP against 16 rows of v): two n8 accumulators, the
+// tile's rows as column-major B operands through ldmatrix.  SCALE scales x
+// (the streamed q of the DK/DV pass).
+template <int HD, bool SCALE>
+__device__ __forceinline__ void mma_abt(float (&acc)[2][4], const unsigned (&a)[HD / 16][4],
+                                        const bf16* tile, int c, int lane, float s) {
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    acc[jj][0] = acc[jj][1] = acc[jj][2] = acc[jj][3] = 0.f;
+#pragma unroll
+    for (int h = 0; h < HD / 32; ++h) {
+      unsigned b[4];  // rows 16c + 8jj.., columns 32h + 8 (lane / 8)..
+      ldsm_x4<false>(b, tile + (16 * c + 8 * jj + (lane & 7)) * (HD + 8) + 32 * h +
+                            (lane >> 3) * 8);
+      if (SCALE) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) b[i] = scale_bf16x2(b[i], s);
+      }
+      mma_16816(acc[jj], a[2 * h], b[0], b[1]);
+      mma_16816(acc[jj], a[2 * h + 1], b[2], b[3]);
+    }
+  }
+}
+
+// acc += a x for the 16 x 16 A fragment a over rows 16c .. 16c + 15 of a
+// staged tile x (dq += ds k, dv += p^T dout, dk += ds^T (scale q)): the
+// rows as row-major B operands through ldmatrix.trans.
+template <int HD, bool SCALE>
+__device__ __forceinline__ void mma_ab(float (&acc)[HD / 8][4], const unsigned (&a)[4],
+                                       const bf16* tile, int c, int lane, float s) {
+#pragma unroll
+  for (int dp = 0; dp < HD / 16; ++dp) {
+    unsigned b[4];  // rows 16c.., columns 16dp + 8 (lane / 16)..
+    ldsm_x4<true>(b, tile + (16 * c + ((lane >> 3) & 1) * 8 + (lane & 7)) * (HD + 8) +
+                         16 * dp + (lane >> 4) * 8);
+    if (SCALE) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) b[i] = scale_bf16x2(b[i], s);
+    }
+    mma_16816(acc[2 * dp], a, b[0], b[1]);
+    mma_16816(acc[2 * dp + 1], a, b[2], b[3]);
+  }
+}
+
+// Stores a 16 x HD accumulator (this thread's rows row0, row0 + 8) times
+// mul as bf16 rows of one head; rows past n are skipped.
+template <int HD>
+__device__ __forceinline__ void store_acc(bf16* dst, long long ld, const float (&acc)[HD / 8][4],
+                                          int row0, int n, bool active, int t, float mul) {
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    bf16* d = dst + (long long)row * ld + 2 * t;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+      *reinterpret_cast<unsigned*>(d + 8 * i) =
+          pack_bf16(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The three passes.
+
+// DQ: 64 query rows of one head for kBwdWin windows; per window four warps
+// of 16 rows.  The ring is the forward's: K, V of each window and the bias
+// tiles at (q0, k0), staged by copy_tile.
+template <int HD, bool FRAG>
+__device__ __forceinline__ void bwd_dq(const AttnBwdParams& P, unsigned char* smem) {
+  constexpr int kLd = HD + 8;
+  constexpr size_t kStage = fwd_stage_bytes<HD, true, FRAG>();
+  const AttnParams& p = P.a;
+  const int n_tiles = (p.n_kv + kBKV - 1) / kBKV;
+  const int slot = threadIdx.x / kThreads, ltid = threadIdx.x % kThreads;
+  const int warp = ltid / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kBQ, head = blockIdx.y;
+  const int batch = blockIdx.z * kBwdWin + slot;
+  const bool valid = batch < P.batch;
+  const int b = valid ? batch : 0;           // addresses of an empty slot
+  const int row0 = q0 + warp * 16 + g;       // this thread's rows: row0, row0 + 8
+  const bool active = valid && q0 + warp * 16 < p.n_q;  // warp-uniform
+  int* sId = reinterpret_cast<int*>(smem + 2 * kStage) + slot * n_tiles * kBKV;
+
+  const bf16* kb = p.k + b * p.sk + head * p.hk;
+  const bf16* vb = p.v + b * p.sv + head * p.hv;
+  copy_tile<HD, true, FRAG>(smem, p, kb, vb, valid, slot, ltid, head, q0, 0);
+  cp_async_commit();
+  for (int i = ltid; i < n_tiles * kBKV; i += kThreads)
+    sId[i] = valid && i < p.n_kv ? token_meta(p, b, i) : 0;
+  unsigned qf[HD / 16][4], df[HD / 16][4];  // scaled q and dout, A fragments
+  load_a_frags<HD, true>(qf, p.q + b * p.sq + head * p.hq, p.ldq, row0, p.n_q, active, t,
+                         p.scale);
+  load_a_frags<HD, false>(df, P.dout + b * p.so + head * p.ho, p.ldo, row0, p.n_q, active,
+                          t, 0.f);
+  float lse[2], dsum[2];
+  bool rok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    rok[r] = active && row < p.n_q;
+    const long long i = ((long long)b * p.heads + head) * p.n_q + row;
+    lse[r] = rok[r] ? P.lse[i] : 0.f;
+    dsum[r] = rok[r] ? P.dsum[i] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // key tile 0, ids
+  int qid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) qid[r] = rok[r] ? sId[row0 + 8 * r] : 0;
+
+  float acc[HD / 8][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBKV;
+    if (it > 0) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it landed; every warp is done with tile it - 1
+    }
+    if (it + 1 < n_tiles) {
+      copy_tile<HD, true, FRAG>(smem + ((it + 1) & 1) * kStage, p, kb, vb, valid, slot, ltid,
+                                head, q0, k0 + kBKV);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const bf16* stage = reinterpret_cast<const bf16*>(smem + (it & 1) * kStage);
+    const bf16* sK = stage + slot * 2 * kBKV * kLd;
+    const bf16* sV = sK + kBKV * kLd;
+    const float* sRel = reinterpret_cast<const float*>(stage + kBwdWin * 2 * kBKV * kLd);
+    const float* sFrag = sRel + kBQ * kBKV;
+#pragma unroll
+    for (int c = 0; c < kBKV / 16; ++c) {  // 16 keys at a time
+      float s[2][4], dp[2][4];
+      mma_abt<HD, false>(s, qf, sK, c, lane, 0.f);
+      mma_abt<HD, false>(dp, df, sV, c, lane, 0.f);
+      unsigned a[4];  // ds, the A fragment of dq += ds k
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = 16 * c + 8 * jj + 2 * t;  // this thread's keys col, col + 1
+        const int2 kid = *reinterpret_cast<const int2*>(sId + k0 + col);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int br = bias_off(warp * 16 + g + 8 * r, col);
+          const float2 rv = *reinterpret_cast<const float2*>(sRel + br);
+          const float2 fv = FRAG ? *reinterpret_cast<const float2*>(sFrag + br)
+                                 : make_float2(0.f, 0.f);
+          float ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ki = e ? kid.y : kid.x;
+            const float sc = window_score(s[jj][2 * r + e], e ? rv.y : rv.x,
+                                          e ? fv.y : fv.x, FRAG,
+                                          FRAG ? frag_gate(qid[r], ki) : 0.f,
+                                          (qid[r] & 0xff) != (ki & 0xff));
+            const float pe = rok[r] && k0 + col + e < p.n_kv ? __expf(sc - lse[r]) : 0.f;
+            ds[e] = pe * (dp[jj][2 * r + e] - dsum[r]);
+          }
+          a[2 * jj + r] = pack_bf16(ds[0], ds[1]);
+        }
+      }
+      mma_ab<HD, false>(acc, a, sK, c, lane, 0.f);
+    }
+  }
+  store_acc<HD>(P.dq + b * p.sq + head * p.hq, p.ldq, acc, row0, p.n_q, active, t, p.scale);
+}
+
+// One DK/DV ring stage: q and dout rows of each window, their lse and D,
+// and the bias tiles at (q0, k0) in the column-read layout.
+template <int HD, bool FRAG>
+__host__ __device__ constexpr size_t dkdv_stage_bytes() {
+  return sizeof(bf16) * kBwdWin * 2 * kBQ * (HD + 8) + sizeof(float) * kBwdWin * 2 * kBQ +
+         sizeof(float) * (FRAG ? 2 : 1) * kBQ * kBKV;
+}
+
+// Starts the copies of query tile [q0, q0 + 64) of window slot `slot` into
+// a DK/DV ring stage (zero past n_q, or for an empty slot) and, by all the
+// CTA's threads, the bias tiles at (q0, k0).
+template <int HD, bool FRAG>
+__device__ __forceinline__ void copy_query_tile(unsigned char* stage, const AttnBwdParams& P,
+                                                const bf16* qb, const bf16* ob,
+                                                const float* lseb, const float* db,
+                                                bool valid, int slot, int ltid, int head,
+                                                int q0, int k0) {
+  constexpr int kLd = HD + 8;
+  const AttnParams& p = P.a;
+  bf16* sQ = reinterpret_cast<bf16*>(stage) + slot * 2 * kBQ * kLd;
+  float* stats = reinterpret_cast<float*>(reinterpret_cast<bf16*>(stage) +
+                                          kBwdWin * 2 * kBQ * kLd);
+  const int n = valid ? p.n_q : 0;
+  cp_async_rows<HD>(sQ, qb, p.ldq, q0, n, ltid);
+  cp_async_rows<HD>(sQ + kBQ * kLd, ob, p.ldo, q0, n, ltid);
+  // lse by threads 0..63, D by 64..127
+  cp_async_stat(stats + slot * 2 * kBQ + ltid / kBQ * kBQ, ltid < kBQ ? lseb : db, q0, n,
+                ltid % kBQ);
+  cp_async_bias<FRAG>(stats + kBwdWin * 2 * kBQ, p, head, q0, k0, threadIdx.x,
+                            kThreads * kBwdWin);
+}
+
+// DK/DV: 64 keys of one head for kBwdWin windows; per window four warps of
+// 16 keys, each computing the transposed tiles s^T and dP^T.
+template <int HD, bool FRAG>
+__device__ __forceinline__ void bwd_dkdv(const AttnBwdParams& P, unsigned char* smem) {
+  constexpr int kLd = HD + 8;
+  constexpr size_t kStage = dkdv_stage_bytes<HD, FRAG>();
+  const AttnParams& p = P.a;
+  const int n_tiles = (p.n_q + kBQ - 1) / kBQ;
+  const int slot = threadIdx.x / kThreads, ltid = threadIdx.x % kThreads;
+  const int warp = ltid / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kBKV, head = blockIdx.y;
+  const int batch = blockIdx.z * kBwdWin + slot;
+  const bool valid = batch < P.batch;
+  const int b = valid ? batch : 0;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  const bool active = valid && k0 + warp * 16 < p.n_kv;
+  int* sId = reinterpret_cast<int*>(smem + 2 * kStage) + slot * n_tiles * kBQ;
+
+  const bf16* qb = p.q + b * p.sq + head * p.hq;
+  const bf16* ob = P.dout + b * p.so + head * p.ho;
+  const long long sb = ((long long)b * p.heads + head) * p.n_q;
+  copy_query_tile<HD, FRAG>(smem, P, qb, ob, P.lse + sb, P.dsum + sb, valid, slot, ltid,
+                            head, 0, k0);
+  cp_async_commit();
+  for (int i = ltid; i < n_tiles * kBQ; i += kThreads)
+    sId[i] = valid && i < p.n_q ? token_meta(p, b, i) : 0;
+  unsigned kf[HD / 16][4], vf[HD / 16][4];  // k and v, A fragments
+  load_a_frags<HD, false>(kf, p.k + b * p.sk + head * p.hk, p.ldk, key0, p.n_kv, active, t,
+                          0.f);
+  load_a_frags<HD, false>(vf, p.v + b * p.sv + head * p.hv, p.ldv, key0, p.n_kv, active, t,
+                          0.f);
+  cp_async_wait<0>();
+  __syncthreads();  // query tile 0, ids
+  bool kok[2];
+  int kid[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kok[r] = active && key0 + 8 * r < p.n_kv;
+    kid[r] = kok[r] ? sId[key0 + 8 * r] : 0;
+  }
+
+  float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = it * kBQ;
+    if (it > 0) {
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (it + 1 < n_tiles) {
+      copy_query_tile<HD, FRAG>(smem + ((it + 1) & 1) * kStage, P, qb, ob, P.lse + sb,
+                                P.dsum + sb, valid, slot, ltid, head, q0 + kBQ, k0);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const bf16* stage = reinterpret_cast<const bf16*>(smem + (it & 1) * kStage);
+    const bf16* sQ = stage + slot * 2 * kBQ * kLd;
+    const bf16* sdO = sQ + kBQ * kLd;
+    const float* stats = reinterpret_cast<const float*>(stage + kBwdWin * 2 * kBQ * kLd);
+    const float* sLse = stats + slot * 2 * kBQ;
+    const float* sD = sLse + kBQ;
+    const float* sRel = stats + kBwdWin * 2 * kBQ;
+    const float* sFrag = sRel + kBQ * kBKV;
+#pragma unroll
+    for (int c = 0; c < kBQ / 16; ++c) {  // 16 queries at a time
+      float st[2][4], dpt[2][4];
+      mma_abt<HD, true>(st, kf, sQ, c, lane, p.scale);
+      mma_abt<HD, false>(dpt, vf, sdO, c, lane, 0.f);
+      unsigned pa[4], da[4];  // p^T and ds^T, A fragments
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = 16 * c + 8 * jj + 2 * t;  // this thread's queries col, col + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(sLse + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(sD + col);
+        const int2 qid = *reinterpret_cast<const int2*>(sId + q0 + col);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float pe[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qi = e ? qid.y : qid.x;
+            const int o = bias_off(col + e, warp * 16 + g + 8 * r);
+            const float sc = window_score(st[jj][2 * r + e], sRel[o], FRAG ? sFrag[o] : 0.f,
+                                          FRAG, FRAG ? frag_gate(kid[r], qi) : 0.f,
+                                          (kid[r] & 0xff) != (qi & 0xff));
+            pe[e] = kok[r] && q0 + col + e < p.n_q ? __expf(sc - (e ? l2.y : l2.x)) : 0.f;
+            ds[e] = pe[e] * (dpt[jj][2 * r + e] - (e ? d2.y : d2.x));
+          }
+          pa[2 * jj + r] = pack_bf16(pe[0], pe[1]);
+          da[2 * jj + r] = pack_bf16(ds[0], ds[1]);
+        }
+      }
+      mma_ab<HD, false>(dv, pa, sdO, c, lane, 0.f);
+      mma_ab<HD, true>(dk, da, sQ, c, lane, p.scale);
+    }
+  }
+  store_acc<HD>(P.dk + b * p.sk + head * p.hk, p.ldk, dk, key0, p.n_kv, active, t, 1.f);
+  store_acc<HD>(P.dv + b * p.sv + head * p.hv, p.ldv, dv, key0, p.n_kv, active, t, 1.f);
+}
+
+// One bias-pass ring stage: a window's q, dout, k and v tiles, the lse and
+// D of its query rows, and the token ids of its query and key tiles.
+template <int HD>
+__host__ __device__ constexpr size_t bias_stage_bytes() {
+  return sizeof(bf16) * 4 * kBQ * (HD + 8) + sizeof(float) * 2 * kBQ + sizeof(int) * 2 * kBQ;
+}
+
+// Starts the copies of window b's tiles at (q0, k0) into a bias-pass ring
+// stage and writes its token ids (plain stores, read after the next
+// barrier); 128 threads.
+template <int HD>
+__device__ __forceinline__ void copy_window(unsigned char* stage, const AttnBwdParams& P,
+                                            int b, int head, int q0, int k0) {
+  constexpr int kLd = HD + 8;
+  const AttnParams& p = P.a;
+  const int tid = threadIdx.x;
+  bf16* sQ = reinterpret_cast<bf16*>(stage);
+  cp_async_rows<HD>(sQ, p.q + b * p.sq + head * p.hq, p.ldq, q0, p.n_q, tid);
+  cp_async_rows<HD>(sQ + kBQ * kLd, P.dout + b * p.so + head * p.ho, p.ldo, q0, p.n_q, tid);
+  cp_async_rows<HD>(sQ + 2 * kBQ * kLd, p.k + b * p.sk + head * p.hk, p.ldk, k0, p.n_kv, tid);
+  cp_async_rows<HD>(sQ + 3 * kBQ * kLd, p.v + b * p.sv + head * p.hv, p.ldv, k0, p.n_kv, tid);
+  float* stats = reinterpret_cast<float*>(sQ + 4 * kBQ * kLd);  // lse, then D
+  const long long sb = ((long long)b * p.heads + head) * p.n_q;
+  cp_async_stat(stats + tid / kBQ * kBQ, (tid < kBQ ? P.lse : P.dsum) + sb, q0, p.n_q,
+                tid % kBQ);
+  // query ids by threads 0..63, key ids by 64..127
+  const int i = tid % kBQ, r0 = tid < kBQ ? q0 : k0, n = tid < kBQ ? p.n_q : p.n_kv;
+  reinterpret_cast<int*>(stats + 2 * kBQ)[tid] = r0 + i < n ? token_meta(p, b, r0 + i) : 0;
+}
+
+// Bias: the 64 x 64 (query tile, key tile) of one head over a chunk of
+// windows; four warps of 16 query rows.
+template <int HD, bool FRAG>
+__device__ __forceinline__ void bwd_bias(const AttnBwdParams& P, unsigned char* smem) {
+  constexpr int kLd = HD + 8;
+  constexpr int kN8 = kBKV / 8;
+  constexpr size_t kStage = bias_stage_bytes<HD>();
+  const AttnParams& p = P.a;
+  const int ntile = (p.n_q + kBQ - 1) / kBQ;
+  const int q0 = (blockIdx.x / ntile) * kBQ, k0 = (blockIdx.x % ntile) * kBKV;
+  const int head = blockIdx.y;
+  const int b0 = blockIdx.z * P.win_chunk, b1 = min(P.batch, b0 + P.win_chunk);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int lrow = warp * 16 + g;  // this thread's tile rows: lrow, lrow + 8
+  const bool active = q0 + warp * 16 < p.n_q;
+  float* sRel = reinterpret_cast<float*>(smem);  // the CTA's bias tiles, staged once
+  const float* sFrag = sRel + kBQ * kBKV;
+  unsigned char* ring = smem + sizeof(float) * (FRAG ? 2 : 1) * kBQ * kBKV;
+  cp_async_bias<FRAG>(sRel, p, head, q0, k0, threadIdx.x, kThreads);
+  copy_window<HD>(ring, P, b0, head, q0, k0);
+  cp_async_commit();
+  bool rok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rok[r] = q0 + lrow + 8 * r < p.n_q;
+
+  float arel[kN8][4] = {}, afrag[kN8][4] = {};  // sums over the windows
+  for (int b = b0; b < b1; ++b) {
+    const int it = b - b0;
+    cp_async_wait<0>();
+    __syncthreads();  // window b landed; every warp is done with window b - 1
+    if (b + 1 < b1) {
+      copy_window<HD>(ring + ((it + 1) & 1) * kStage, P, b + 1, head, q0, k0);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const bf16* sQ = reinterpret_cast<const bf16*>(ring + (it & 1) * kStage);
+    const bf16* sdO = sQ + kBQ * kLd;
+    const bf16* sK = sQ + 2 * kBQ * kLd;
+    const bf16* sV = sQ + 3 * kBQ * kLd;
+    const float* sLse = reinterpret_cast<const float*>(sQ + 4 * kBQ * kLd);
+    const float* sD = sLse + kBQ;
+    const int* sQid = reinterpret_cast<const int*>(sD + kBQ);
+    const int* sKid = sQid + kBQ;
+    unsigned qa[HD / 16][4], da[HD / 16][4];  // scaled q and dout, A fragments
+    ldsm_a_frags<HD, true>(qa, sQ, warp * 16, lane, p.scale);
+    ldsm_a_frags<HD, false>(da, sdO, warp * 16, lane, 0.f);
+    float lse[2], dsum[2];
+    int qid[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse[r] = sLse[lrow + 8 * r];
+      dsum[r] = sD[lrow + 8 * r];
+      qid[r] = sQid[lrow + 8 * r];
+    }
+#pragma unroll
+    for (int c = 0; c < kBKV / 16; ++c) {
+      float s[2][4], dp[2][4];
+      mma_abt<HD, false>(s, qa, sK, c, lane, 0.f);
+      mma_abt<HD, false>(dp, da, sV, c, lane, 0.f);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * c + jj, col = 8 * j + 2 * t;
+        const int2 kid = *reinterpret_cast<const int2*>(sKid + col);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int br = bias_off(lrow + 8 * r, col);
+          const float2 rv = *reinterpret_cast<const float2*>(sRel + br);
+          const float2 fv = FRAG ? *reinterpret_cast<const float2*>(sFrag + br)
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ki = e ? kid.y : kid.x;
+            const float gate = FRAG ? frag_gate(qid[r], ki) : 0.f;
+            const float sc = window_score(s[jj][2 * r + e], e ? rv.y : rv.x,
+                                          e ? fv.y : fv.x, FRAG, gate,
+                                          (qid[r] & 0xff) != (ki & 0xff));
+            const float pe = rok[r] && k0 + col + e < p.n_kv ? __expf(sc - lse[r]) : 0.f;
+            const float ds = pe * (dp[jj][2 * r + e] - dsum[r]);
+            if (FRAG) {
+              arel[j][2 * r + e] += ds * gate;
+              afrag[j][2 * r + e] += ds * (1.f - gate);
+            } else {
+              arel[j][2 * r + e] += ds;
+            }
+          }
+        }
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!rok[r]) continue;
+    const long long base = ((long long)head * p.n_q + q0 + lrow + 8 * r) * p.n_kv;
+#pragma unroll
+    for (int j = 0; j < kN8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = k0 + 8 * j + 2 * t + e;
+        if (c >= p.n_kv) continue;
+        atomicAdd(P.drel + base + c, arel[j][2 * r + e]);
+        if (FRAG) atomicAdd(P.dfrag + base + c, afrag[j][2 * r + e]);
+      }
+  }
+}
+
+template <int PASS>
+__host__ __device__ constexpr int bwd_threads() {
+  return PASS == kPassBias ? kThreads : kThreads * kBwdWin;
+}
+
+// Shared memory of one CTA of a pass at n tokens a window.
+template <int HD, int PASS, bool FRAG>
+size_t bwd_smem_bytes(int n) {
+  const size_t ids = sizeof(int) * kBwdWin * ((n + kBQ - 1) / kBQ) * kBQ;
+  if (PASS == kPassDQ) return fwd_smem_bytes<HD, true, FRAG>(n);
+  if (PASS == kPassDKDV) return 2 * dkdv_stage_bytes<HD, FRAG>() + ids;
+  return sizeof(float) * (FRAG ? 2 : 1) * kBQ * kBKV + 2 * bias_stage_bytes<HD>();
+}
+
+// One template for the three passes, so that a profile names each by its
+// PASS argument.  DQ and DK/DV take ~110 KB (two CTAs of eight warps per
+// SM), the bias pass 74 KB (three of four warps).
+template <int HD, int PASS, bool FRAG>
+__global__ void __launch_bounds__(bwd_threads<PASS>(), PASS == kPassBias ? 3 : 2)
+attention_bwd_kernel(const AttnBwdParams P) {
+  static_assert(HD % 32 == 0, "head dim");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  if constexpr (PASS == kPassDQ)
+    bwd_dq<HD, FRAG>(P, smem_raw);
+  else if constexpr (PASS == kPassDKDV)
+    bwd_dkdv<HD, FRAG>(P, smem_raw);
+  else
+    bwd_bias<HD, FRAG>(P, smem_raw);
+}
+
+// The card's SM count and opt-in shared memory per block, read once.
+struct DeviceLimits {
+  int sms = 132;
+  int smem_optin = 232448;
 };
 
-// Query side of window b: scaled q, dout, token ids, lse and D of rows q0..
-template <int HD>
-__device__ __forceinline__ void load_query_side(const AttnBwdParams& P,
-                                                const BwdSmem<HD>& m, int b,
-                                                int head, int q0) {
-  const AttnParams& p = P.a;
-  load_tile<HD, kBQ, true>(m.sQ, p.q + b * p.sq + head * p.hq, p.ldq, q0, p.n_q,
-                           p.scale);
-  load_tile<HD, kBQ, false>(m.sdO, P.dout + b * p.so + head * p.ho, p.ldo, q0,
-                            p.n_q, 0.f);
-  for (int i = threadIdx.x; i < kBQ; i += kThreads) {
-    const bool ok = q0 + i < p.n_q;
-    const long long r = ((long long)b * p.heads + head) * p.n_q + q0 + i;
-    m.sQid[i] = ok ? token_meta(p, b, q0 + i) : 0;
-    m.sLse[i] = ok ? P.lse[r] : 0.f;
-    m.sD[i] = ok ? P.dsum[r] : 0.f;
-  }
+inline const DeviceLimits& device_limits() {
+  static const DeviceLimits lim = [] {
+    DeviceLimits l;
+    int dev = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess) {
+      cudaDeviceGetAttribute(&l.sms, cudaDevAttrMultiProcessorCount, dev);
+      cudaDeviceGetAttribute(&l.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    return l;
+  }();
+  return lim;
 }
 
-template <int HD>
-__device__ __forceinline__ void load_key_side(const AttnBwdParams& P,
-                                              const BwdSmem<HD>& m, int b,
-                                              int head, int k0) {
-  const AttnParams& p = P.a;
-  load_tile<HD, kBKV, false>(m.sK, p.k + b * p.sk + head * p.hk, p.ldk, k0,
-                             p.n_kv, 0.f);
-  load_tile<HD, kBKV, false>(m.sV, p.v + b * p.sv + head * p.hv, p.ldv, k0,
-                             p.n_kv, 0.f);
-  for (int i = threadIdx.x; i < kBKV; i += kThreads)
-    m.sKid[i] = k0 + i < p.n_kv ? token_meta(p, b, k0 + i) : 0;
-}
-
-// For the loaded tiles: this lane's 32 entries of p and ds (row r of the
-// warp's 16, columns hc + 8*j + [0, 4)), zero outside the window.
-template <int HD>
-__device__ __forceinline__ void tile_grads(const AttnBwdParams& P,
-                                           const BwdSmem<HD>& m, int head,
-                                           int q0, int k0, float (&pr)[32],
-                                           float (&ds)[32]) {
-  constexpr int kLd = HD + 8;
-  const AttnParams& p = P.a;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = lane >> 1, hc = (lane & 1) * 4;
-  float* wS = m.sS + warp * 16 * kSLd;
-  float* wdP = m.sdP + warp * 16 * kSLd;
-#pragma unroll
-  for (int nf = 0; nf < kBKV / 16; ++nf) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s, dp;
-    wmma::fill_fragment(s, 0.f);
-    wmma::fill_fragment(dp, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-      wmma::load_matrix_sync(a, m.sQ + warp * 16 * kLd + kk * 16, kLd);
-      wmma::load_matrix_sync(bk, m.sK + nf * 16 * kLd + kk * 16, kLd);
-      wmma::mma_sync(s, a, bk, s);
-      wmma::load_matrix_sync(a, m.sdO + warp * 16 * kLd + kk * 16, kLd);
-      wmma::load_matrix_sync(bk, m.sV + nf * 16 * kLd + kk * 16, kLd);
-      wmma::mma_sync(dp, a, bk, dp);
-    }
-    wmma::store_matrix_sync(wS + nf * 16, s, kSLd, wmma::mem_row_major);
-    wmma::store_matrix_sync(wdP + nf * 16, dp, kSLd, wmma::mem_row_major);
-  }
-  __syncwarp();
-  const int row = q0 + warp * 16 + r;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float4 v = *reinterpret_cast<const float4*>(wS + r * kSLd + hc + 8 * j);
-    pr[4 * j] = v.x;
-    pr[4 * j + 1] = v.y;
-    pr[4 * j + 2] = v.z;
-    pr[4 * j + 3] = v.w;
-  }
-  const bool row_ok = row < p.n_q;
-  if (row_ok) {
-    const float* rel_r = p.rel + ((long long)head * p.n_q + row) * p.n_kv;
-    const float* frag_r =
-        p.frag ? p.frag + ((long long)head * p.n_q + row) * p.n_kv : nullptr;
-    add_window_bias(pr, p.n_kv, rel_r, frag_r, m.sQid[warp * 16 + r], m.sKid,
-                    k0, hc);
-  }
-  const float lse = m.sLse[warp * 16 + r];
-  const float dsum = m.sD[warp * 16 + r];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = hc + 8 * j + e;
-      const bool ok = row_ok && k0 + c < p.n_kv;
-      const float pe = ok ? __expf(pr[4 * j + e] - lse) : 0.f;
-      pr[4 * j + e] = pe;
-      ds[4 * j + e] = pe * (wdP[r * kSLd + c] - dsum);
-    }
-  __syncwarp();  // wS / wdP are rewritten by the next tile
-}
-
-// Writes a 64 x HD f32 staging tile (times `mul`) as bf16 rows r0.. of one
-// head of a (b, h, row, d) tensor.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* dst, long long ld,
-                                           const float* src, int r0, int n,
-                                           float mul) {
-  for (int c = threadIdx.x; c < kBQ * HD / 8; c += kThreads) {
-    const int r = c / (HD / 8), col = (c % (HD / 8)) * 8;
-    if (r0 + r >= n) continue;
-    __align__(16) bf16 y[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) y[e] = __float2bfloat16(src[r * (HD + 4) + col + e] * mul);
-    *reinterpret_cast<uint4*>(dst + (long long)(r0 + r) * ld + col) =
-        *reinterpret_cast<const uint4*>(y);
-  }
-}
-
-template <int HD, int PASS>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_kernel(const AttnBwdParams P) {
-  constexpr int kLd = HD + 8;
-  constexpr int kF = HD / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const BwdSmem<HD> m(smem_raw);
-  const AttnParams& p = P.a;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = lane >> 1, hc = (lane & 1) * 4;
-  const int head = blockIdx.y;
-  const int ntile = (p.n_q + kBQ - 1) / kBQ;
-  float pr[32], ds[32];
-
-  if (PASS == kPassDQ) {
-    const int b = blockIdx.z, q0 = blockIdx.x * kBQ;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kF];
-#pragma unroll
-    for (int f = 0; f < kF; ++f) wmma::fill_fragment(acc[f], 0.f);
-    load_query_side<HD>(P, m, b, head, q0);
-    for (int k0 = 0; k0 < p.n_kv; k0 += kBKV) {
-      __syncthreads();
-      load_key_side<HD>(P, m, b, head, k0);
-      __syncthreads();
-      tile_grads<HD>(P, m, head, q0, k0, pr, ds);
-      bf16* wdS = m.sdS + warp * 16 * kPLd;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        __align__(8) bf16 t[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) t[e] = __float2bfloat16(ds[4 * j + e]);
-        *reinterpret_cast<uint2*>(wdS + r * kPLd + hc + 8 * j) =
-            *reinterpret_cast<const uint2*>(t);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int f = 0; f < kF; ++f)
-#pragma unroll
-        for (int kk = 0; kk < kBKV / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
-          wmma::load_matrix_sync(a, wdS + kk * 16, kPLd);
-          wmma::load_matrix_sync(bk, m.sK + kk * 16 * kLd + f * 16, kLd);
-          wmma::mma_sync(acc[f], a, bk, acc[f]);
-        }
-    }
-#pragma unroll
-    for (int f = 0; f < kF; ++f)
-      wmma::store_matrix_sync(m.sOut + warp * 16 * (HD + 4) + f * 16, acc[f],
-                              HD + 4, wmma::mem_row_major);
-    __syncthreads();
-    store_rows<HD>(P.dq + b * p.sq + head * p.hq, p.ldq, m.sOut, q0, p.n_q,
-                   p.scale);
-  } else if (PASS == kPassDKDV) {
-    const int b = blockIdx.z, k0 = blockIdx.x * kBKV;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> adk[kF], adv[kF];
-#pragma unroll
-    for (int f = 0; f < kF; ++f) {
-      wmma::fill_fragment(adk[f], 0.f);
-      wmma::fill_fragment(adv[f], 0.f);
-    }
-    load_key_side<HD>(P, m, b, head, k0);
-    for (int q0 = 0; q0 < p.n_q; q0 += kBQ) {
-      __syncthreads();
-      load_query_side<HD>(P, m, b, head, q0);
-      __syncthreads();
-      tile_grads<HD>(P, m, head, q0, k0, pr, ds);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        __align__(8) bf16 tp[4], td[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          tp[e] = __float2bfloat16(pr[4 * j + e]);
-          td[e] = __float2bfloat16(ds[4 * j + e]);
-        }
-        const int o = (warp * 16 + r) * kPLd + hc + 8 * j;
-        *reinterpret_cast<uint2*>(m.sP + o) = *reinterpret_cast<const uint2*>(tp);
-        *reinterpret_cast<uint2*>(m.sdS + o) = *reinterpret_cast<const uint2*>(td);
-      }
-      __syncthreads();  // every warp's rows of p and ds
-      // this warp's 16 keys: dv += p^T dout, dk += ds^T (scale q)
-#pragma unroll
-      for (int f = 0; f < kF; ++f)
-#pragma unroll
-        for (int kk = 0; kk < kBQ / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bq;
-          wmma::load_matrix_sync(a, m.sP + kk * 16 * kPLd + warp * 16, kPLd);
-          wmma::load_matrix_sync(bq, m.sdO + kk * 16 * kLd + f * 16, kLd);
-          wmma::mma_sync(adv[f], a, bq, adv[f]);
-          wmma::load_matrix_sync(a, m.sdS + kk * 16 * kPLd + warp * 16, kPLd);
-          wmma::load_matrix_sync(bq, m.sQ + kk * 16 * kLd + f * 16, kLd);
-          wmma::mma_sync(adk[f], a, bq, adk[f]);
-        }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < kF; ++f)
-      wmma::store_matrix_sync(m.sOut + warp * 16 * (HD + 4) + f * 16, adk[f],
-                              HD + 4, wmma::mem_row_major);
-    __syncthreads();
-    store_rows<HD>(P.dk + b * p.sk + head * p.hk, p.ldk, m.sOut, k0, p.n_kv, 1.f);
-    __syncthreads();
-#pragma unroll
-    for (int f = 0; f < kF; ++f)
-      wmma::store_matrix_sync(m.sOut + warp * 16 * (HD + 4) + f * 16, adv[f],
-                              HD + 4, wmma::mem_row_major);
-    __syncthreads();
-    store_rows<HD>(P.dv + b * p.sv + head * p.hv, p.ldv, m.sOut, k0, p.n_kv, 1.f);
-  } else {
-    const int q0 = (blockIdx.x / ntile) * kBQ;
-    const int k0 = (blockIdx.x % ntile) * kBKV;
-    const int b0 = blockIdx.z * P.win_chunk;
-    const int b1 = min(P.batch, b0 + P.win_chunk);
-    float arel[32], afrag[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) arel[i] = afrag[i] = 0.f;
-    for (int b = b0; b < b1; ++b) {
-      __syncthreads();
-      load_query_side<HD>(P, m, b, head, q0);
-      load_key_side<HD>(P, m, b, head, k0);
-      __syncthreads();
-      tile_grads<HD>(P, m, head, q0, k0, pr, ds);
-      const int qi = m.sQid[warp * 16 + r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float g = p.frag ? frag_gate(qi, m.sKid[hc + 8 * j + e]) : 1.f;
-          arel[4 * j + e] += ds[4 * j + e] * g;
-          afrag[4 * j + e] += ds[4 * j + e] * (1.f - g);
-        }
-    }
-    const int row = q0 + warp * 16 + r;
-    if (row < p.n_q) {
-      const long long base = ((long long)head * p.n_q + row) * p.n_kv;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = k0 + hc + 8 * j + e;
-          if (c >= p.n_kv) continue;
-          atomicAdd(P.drel + base + c, arel[4 * j + e]);
-          if (P.dfrag) atomicAdd(P.dfrag + base + c, afrag[4 * j + e]);
-        }
-    }
-  }
-}
-
-template <int HD, int PASS>
-cudaError_t launch_bwd_pass(const AttnBwdParams& P, dim3 grid,
-                            cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<HD>();
-  cudaFuncSetAttribute(attention_bwd_kernel<HD, PASS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  attention_bwd_kernel<HD, PASS><<<grid, kThreads, smem, stream>>>(P);
+template <int HD, int PASS, bool FRAG>
+cudaError_t launch_bwd_pass(const AttnBwdParams& P, dim3 grid, cudaStream_t stream) {
+  // once per instantiation: allow the card's whole opt-in shared memory
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_kernel<HD, PASS, FRAG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      device_limits().smem_optin);
+  if (attr != cudaSuccess) return attr;
+  attention_bwd_kernel<HD, PASS, FRAG><<<grid, bwd_threads<PASS>(),
+                                         bwd_smem_bytes<HD, PASS, FRAG>(P.a.n_q), stream>>>(P);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool FRAG>
 cudaError_t launch_attention_bwd(AttnBwdParams& P, cudaStream_t stream) {
   const int n = P.a.n_q, heads = P.a.heads;
   const int ntile = (n + kBQ - 1) / kBQ;
   const long long rows = (long long)P.batch * heads * n;
   attn_dsum_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
-      P.o, P.dout, P.a.ldo, P.a.so, P.a.ho, P.dsum,
-      P.batch, heads, n, HD);
+      P.o, P.dout, P.a.ldo, P.a.so, P.a.ho, P.dsum, P.batch, heads, n, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid(ntile, heads, P.batch);
-  if ((err = launch_bwd_pass<HD, kPassDQ>(P, grid, stream)) != cudaSuccess) return err;
-  if ((err = launch_bwd_pass<HD, kPassDKDV>(P, grid, stream)) != cudaSuccess) return err;
+  const dim3 grid(ntile, heads, (P.batch + kBwdWin - 1) / kBwdWin);
+  if ((err = launch_bwd_pass<HD, kPassDQ, FRAG>(P, grid, stream)) != cudaSuccess) return err;
+  if ((err = launch_bwd_pass<HD, kPassDKDV, FRAG>(P, grid, stream)) != cudaSuccess) return err;
   // about eight CTAs per SM's worth of work in the bias pass
   const int tiles = ntile * ntile * heads;
-  int chunks = (132 * 8 + tiles - 1) / tiles;
+  int chunks = (device_limits().sms * 8 + tiles - 1) / tiles;
   chunks = chunks < 1 ? 1 : (chunks > P.batch ? P.batch : chunks);
   P.win_chunk = (P.batch + chunks - 1) / chunks;
   chunks = (P.batch + P.win_chunk - 1) / P.win_chunk;
-  return launch_bwd_pass<HD, kPassBias>(P, dim3(ntile * ntile, heads, chunks), stream);
+  return launch_bwd_pass<HD, kPassBias, FRAG>(P, dim3(ntile * ntile, heads, chunks), stream);
 }
 
 // Strides of the two layouts: head-major (BW, h, N, hd) tensors (K5), or
@@ -479,6 +791,7 @@ extern "C" int kvq_window_attention_bwd(
   P.dfrag = dfrag;
   P.batch = BW;
   // every train stage of Swin-T has head_dim 32
-  if (hd == 32) return (int)kvq::launch_attention_bwd<32>(P, stream);
-  return (int)cudaErrorInvalidValue;
+  if (hd != 32) return (int)cudaErrorInvalidValue;
+  return (int)(frag ? kvq::launch_attention_bwd<32, true>(P, stream)
+                    : kvq::launch_attention_bwd<32, false>(P, stream));
 }

@@ -118,13 +118,20 @@ def _multipliers(BW, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shift,use_frag", [((0, 0, 0), True),
-                                            ((2, 3, 3), True),
-                                            ((2, 0, 0), False)])
-def test_train_swin_block_kernels_match_plain(cuda, shift, use_frag):
-    dims, window = (8, 14, 14), (4, 7, 7)
+@pytest.mark.parametrize("dims,window,shift,use_frag,C,h", [
+    ((8, 14, 14), (4, 7, 7), (0, 0, 0), True, 64, 2),
+    ((8, 14, 14), (4, 7, 7), (2, 3, 3), True, 64, 2),
+    ((8, 14, 14), (4, 7, 7), (2, 0, 0), False, 64, 2),
+    # a stage-0 window shape of the packed-qkv attention backward: the
+    # shipped (8, 7, 7) window (N = 392, ragged 64-row tiles), C = 96,
+    # three heads, 16 windows
+    ((8, 28, 28), (8, 7, 7), (0, 0, 0), True, 96, 3),
+    ((8, 28, 28), (8, 7, 7), (4, 3, 3), True, 96, 3),
+])
+def test_train_swin_block_kernels_match_plain(cuda, dims, window, shift,
+                                              use_frag, C, h):
     x, params, rel, frag, geo = _block_inputs(dims, window, shift, use_frag,
-                                              C=64, h=2)
+                                              C=C, h=h)
     bf = torch.bfloat16
     x = x.to(cuda, bf)
     params = {k: v.to(cuda, bf) for k, v in params.items()}
@@ -174,14 +181,27 @@ def _window_scores_plain(q, k, rel, frag, geo, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shift,use_frag", [((0, 0, 0), True),
-                                            ((2, 3, 3), True),
-                                            ((2, 0, 0), False)])
-def test_window_attention_train_kernels_match_plain(cuda, shift, use_frag):
-    dims, window, h, hd = (8, 14, 14), (4, 7, 7), 3, 32
-    geo = TWA.WindowGeometry(batch=2, dims=dims, window=window, shift=shift,
-                             fragments=(1, 7, 7), num_heads=h, head_dim=hd,
-                             use_frag=use_frag)
+@pytest.mark.parametrize("dims,window,shift,use_frag,batch", [
+    ((8, 14, 14), (4, 7, 7), (0, 0, 0), True, 2),
+    ((8, 14, 14), (4, 7, 7), (2, 3, 3), True, 2),
+    ((8, 14, 14), (4, 7, 7), (2, 0, 0), False, 2),
+    ((8, 14, 14), (8, 7, 7), (0, 0, 0), True, 2),   # N = 392: ragged tiles
+    ((8, 14, 14), (8, 7, 7), (4, 3, 3), True, 2),
+    ((8, 14, 14), (8, 7, 7), (4, 3, 3), False, 2),
+    # 13 windows: the bias pass's chunks of 2 do not divide them, and the
+    # last CTA of the DQ and DK/DV passes has an empty window slot
+    ((8, 7, 7), (8, 7, 7), (0, 0, 0), True, 13),
+    ((4, 10, 15), (4, 5, 5), (2, 2, 2), True, 2),   # N = 100
+    ((4, 10, 15), (4, 5, 5), (0, 0, 0), False, 2),
+    ((2, 5, 10), (2, 5, 5), (0, 0, 0), True, 3),    # N = 50
+    ((2, 10, 5), (2, 5, 5), (1, 2, 2), False, 3),
+])
+def test_window_attention_train_kernels_match_plain(cuda, dims, window, shift,
+                                                    use_frag, batch):
+    h, hd = 3, 32
+    geo = TWA.WindowGeometry(batch=batch, dims=dims, window=window,
+                             shift=shift, fragments=(1, 7, 7), num_heads=h,
+                             head_dim=hd, use_frag=use_frag)
     gen = torch.Generator(device=cuda).manual_seed(0)
     N, BW = geo.n_tokens, geo.batch * geo.n_windows
 
@@ -194,9 +214,12 @@ def test_window_attention_train_kernels_match_plain(cuda, shift, use_frag):
     dout = rnd(BW, h, N, hd).bfloat16()
     scale = hd ** -0.5
     out, lse = TA.window_attention_train_fwd(q, k, v, rel, frag, geo, scale)
+    before = TA.window_attention_train_bwd.launches
     grads = TA.window_attention_train_bwd(q, k, v, rel, frag, geo, scale,
                                           out, lse, dout)
     torch.cuda.synchronize()
+    assert TA.window_attention_train_bwd.launches == before + 1
+    assert (grads[4] is None) == (not use_frag)
     # the row log-sum-exp the backward reads: f32 scores on both sides, only
     # the products' summation order and the kernel's exp2 differ
     want_lse = _window_scores_plain(q, k, rel, frag, geo, scale).logsumexp(-1)
@@ -209,6 +232,7 @@ def test_window_attention_train_kernels_match_plain(cuda, shift, use_frag):
                                                scale, out, dout)
     for name, a, b in zip(("dq", "dk", "dv", "drel", "dfrag"), grads, want):
         if b is not None:
+            assert a.shape == b.shape, name
             _grad_close(name, a, b)
     # through autograd: the module path's call
     qg = q.clone().requires_grad_()

@@ -323,3 +323,39 @@ def test_train_plain_backwards_match_autograd(dims, shift, use_frag):
     want = torch.autograd.grad(ref, leaves, dy)
     for a, b in zip(got, want):
         _grad_close(a, b.numpy())
+
+
+def test_window_attention_train_bwd_plain_matches_jax_kernel_n392():
+    """The plain backward (the card tests' oracle) at the shipped (8, 7, 7)
+    window, N = 392, whose 64-row tiles are ragged: shifted along d, with a
+    fragment bias, one head of 32."""
+    geo_kw = dict(batch=1, dims=(16, 7, 7), window=(8, 7, 7),
+                  shift=(4, 0, 0), fragments=(1, 7, 7), num_heads=1,
+                  head_dim=32, use_frag=True)
+    geo = TWA.WindowGeometry(**geo_kw)
+    BW, N = geo.n_windows, geo.n_tokens
+    assert (BW, N) == (2, 392)
+    rng = np.random.default_rng(6)
+    q, k, v, dout = (rng.normal(size=(BW, 1, N, 32)).astype(np.float32)
+                     for _ in range(4))
+    rel, frag = (rng.normal(size=(1, N, N), scale=0.5).astype(np.float32)
+                 for _ in range(2))
+    jgeo = WA.WindowGeometry(**geo_kw)
+    old = WA.TRAIN_INTERPRET
+    WA.TRAIN_INTERPRET = True
+    try:
+        ref, vjp = jax.vjp(
+            lambda *a: WA.window_attention_train(*a, jgeo),
+            *(jnp.asarray(a) for a in (q, k, v, rel, frag)))
+        ref_grads = vjp(jnp.asarray(dout))
+    finally:
+        WA.TRAIN_INTERPRET = old
+    t = [torch.from_numpy(a) for a in (q, k, v, rel, frag)]
+    out = TTA.window_attention_train_plain(*t, geo, 32 ** -0.5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+    grads = TTA.window_attention_train_bwd_plain(*t, geo, 32 ** -0.5, out,
+                                                 torch.from_numpy(dout))
+    for name, got, want in zip(("dq", "dk", "dv", "drel", "dfrag"), grads,
+                               ref_grads):
+        _grad_close(got, want, name)

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Times the port's forward attention kernels on one NVIDIA GPU, for one or
-more checkouts of the repo in turn, so that two versions of the shared flash
-forward body (``kvq_tpu_torch/ops/csrc/flash_attention.cuh``) compare on one
+"""Times the port's attention kernels on one NVIDIA GPU, for one or more
+checkouts of the repo in turn, so that two versions of the shared flash
+forward body (``kvq_tpu_torch/ops/csrc/flash_attention.cuh``) or of the
+window-attention backward (``ops/csrc/train_attention.cu``) compare on one
 card in one run.
 
     python3 tools/torch_attention_timing.py --root OLD --root NEW \
-        [--out attention_timing.json]
+        [--kernels "K5 bwd,K4 bwd"] [--out attention_timing.json]
 
 Every kernel that launches the body is timed at chip_smoke.py's shapes:
 K3 at the four padded stage geometries of swin_tiny_grpb and the two of
 swin_tiny_grpb_m, unshifted and shifted; K6 at stage 0's; K2 and K7 at the
 nine CDM shapes; K5's forward at train stage 3; K1 at KSVQE's four stage
-geometries; K4's forward at train stages 0-2.  Each case is first held
-against its plain version (chip_smoke's tolerances) and fails the run past
-them.  Each root runs in a process of its own (its kernels build into its
+geometries; K4's forward at train stages 0-2; K5's backward
+(``window_attention_train_bwd``) at the four train stages' shapes and K4's
+(``train_swin_block_bwd``, the packed-qkv layout) at stages 0-2, unshifted
+and shifted.  ``--kernels`` keeps the cases of the kernels it names.  Each
+case is first held against its plain version (chip_smoke's tolerances;
+every gradient of a backward) and fails the run past them.  Each root runs in a process of its own (its kernels build into its
 own ``ops/_build``), in the order given and then reversed (A B B A), and a
 case's time is the mean of a root's runs.  A case's time is taken twice: CUDA events around 20 calls (the time
 per call as a caller sees it) and the profiler's kernel time of 10 calls
 (device time alone, which differs where the host's dispatch of a call
-outlasts its kernels).  Prints one line per case and version and writes
-every time to ``--out``.
+outlasts its kernels).  A backward's device time is also split by kernel:
+the DQ, DK/DV and bias passes (the PASS argument of
+``attention_bwd_kernel``), the D row sums, and the rest (K4's products and
+LayerNorms); and it is timed beside SDPA's backward through autograd on
+the same q, k, v with the blended bias and seam mask as a float mask (the
+library yardstick; for K4 at its attention's shapes).  Prints one line per
+case and version and writes every time to ``--out``.
 Imports nothing of JAX.
 """
 
@@ -29,6 +38,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -64,13 +74,30 @@ def _cases(smoke):
         for shifted in (False, True):
             out.append(("K4 fwd", f"train stage{stage} shift={int(shifted)}",
                         (stage, shifted)))
+    for stage in range(4):
+        for shifted in (False, True):
+            out.append(("K5 bwd", f"train stage{stage} shift={int(shifted)}",
+                        (stage, shifted)))
+    for stage in range(3):
+        for shifted in (False, True):
+            out.append(("K4 bwd", f"train stage{stage} shift={int(shifted)}",
+                        (stage, shifted)))
     return out
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def _part(name: str) -> str:
+    """The part of a backward a kernel name belongs to."""
+    m = re.search(r"attention_bwd_kernel<\d+, (\d)", name)
+    if m:
+        return ("dq", "dkdv", "bias")[int(m.group(1))]
+    return "dsum" if "attn_dsum_kernel" in name else "other"
+
+
+def device_ms(fn, calls: int = 10) -> tuple[float, dict]:
     """Device time of one call of ``fn``: the profiler's kernel time over
     ``calls`` calls, which leaves out the host's share that CUDA events see
-    when a call's kernels are shorter than its dispatch."""
+    when a call's kernels are shorter than its dispatch; and that time by
+    ``_part``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -80,14 +107,110 @@ def device_ms(fn, calls: int = 10) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0)
-             for e in prof.key_averages()
-             if str(getattr(e, "device_type", "")) == "DeviceType.CUDA")
-    return us / 1e3 / calls
+    parts: dict = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")) != "DeviceType.CUDA":
+            continue
+        part = _part(e.key)
+        parts[part] = (parts.get(part, 0.0)
+                       + getattr(e, "self_device_time_total", 0.0) / 1e3 / calls)
+    return sum(parts.values()), parts
 
 
-def run_one(root: str, out_path: str) -> None:
-    """Time every case with the package of ``root``; write a JSON list."""
+def sdpa_bwd(smoke, q, k, v, mask, dout, scale):
+    """SDPA's backward through autograd into q, k, v and the float mask:
+    (CUDA-event ms, device ms) per call."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    m = mask.detach().clone().requires_grad_()
+    y = F.scaled_dot_product_attention(*leaves, attn_mask=m, scale=scale)
+
+    def fn():
+        return torch.autograd.grad(y, leaves + [m], dout, retain_graph=True)
+
+    return smoke.cuda_ms(fn, 20), device_ms(fn)[0]
+
+
+def grad_err(name, got, want, tol):
+    """max|got - want| of a gradient; fails past tol x its largest magnitude."""
+    err = (got.float() - want.float()).abs().max().item()
+    lim = tol * max(want.float().abs().max().item(), 1e-6)
+    if not (math.isfinite(err) and err <= lim):
+        raise SystemExit(f"{name}: max|d| {err} > tol {lim}")
+    return err
+
+
+def _backward_case(smoke, kernel, spec, gen):
+    """A backward case at chip_smoke's train shapes (B=4, T=32): (kernel
+    gradients, plain gradients, fn, args, bytes, FLOPs, SDPA backward)."""
+    import torch
+
+    from kvq_tpu_torch.nn.swin import expand_bias_planes, get_window_size
+    from kvq_tpu_torch.ops import train_attention as TA
+    from kvq_tpu_torch.ops import window_attention as WA
+
+    bf = torch.bfloat16
+    stage, shifted = spec
+    B = smoke.TRAIN_B
+    if kernel == "K5 bwd":
+        dims, C, h, use_frag = smoke.TRAIN_STAGES[stage]
+        win, sh = get_window_size(dims, (8, 7, 7),
+                                  (4, 3, 3) if shifted else (0, 0, 0))
+        geo = WA.WindowGeometry(batch=B, dims=dims, window=win, shift=sh,
+                                fragments=(1, 7, 7), num_heads=h,
+                                head_dim=C // h, use_frag=use_frag)
+        N, hd, BW = geo.n_tokens, geo.head_dim, B * geo.n_windows
+        q, k, v, dout = (torch.randn(BW, h, N, hd, generator=gen,
+                                     device="cuda").to(bf) for _ in range(4))
+        tables = torch.randn(2, 15 * 13 * 13, h, generator=gen,
+                             device="cuda") * 0.5
+        rel = expand_bias_planes(tables[0], (8, 7, 7), N)
+        frag = (expand_bias_planes(tables[1], (8, 7, 7), N) if use_frag
+                else None)
+        scale = hd ** -0.5
+        out, lse = TA.window_attention_train_fwd(q, k, v, rel, frag, geo,
+                                                 scale)
+        args = (q, k, v, rel, frag, geo, scale, out, lse, dout)
+        fn = TA.window_attention_train_bwd
+        got = fn(*args)
+        want = TA.window_attention_train_bwd_plain(q, k, v, rel, frag, geo,
+                                                   scale, out, dout)
+        planes = (1 + int(use_frag)) * h * N * N * 4
+        nbytes = 8 * BW * h * N * hd * 2 + 2 * planes + BW * h * N * 4
+        flops = 2.5 * 4 * BW * h * N * N * hd
+    else:  # K4's backward, the packed-qkv layout
+        (x, params, rel, frag, geo), fflops, _ = smoke.block_case(
+            stage, shifted, gen, smoke.TRAIN_STAGES, B)
+        BW, N, C = x.shape
+        h, hd = geo.num_heads, geo.head_dim
+        scale = hd ** -0.5
+        dp1 = smoke._multipliers(B, geo.n_windows, gen)
+        dp2 = smoke._multipliers(B, geo.n_windows, gen)
+        dout = torch.randn(x.shape, generator=gen, device="cuda").to(bf)
+        args = (x, params, rel, frag, geo, scale, dp1, dp2, dout)
+        fn = TA.train_swin_block_bwd
+        dx, g, drel, dfrag = fn(*args)
+        rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(*args)
+        got = [dx, drel, dfrag] + [g[key].reshape(rg[key].shape) for key in g]
+        want = [rdx, rdrel, rdfrag] + [rg[key] for key in g]
+        planes = (1 + int(frag is not None)) * h * N * N * 4
+        w = 12 * C * C
+        nbytes = 3 * BW * N * C * 2 + w * 2 + w * 4 + 2 * planes + 2 * BW * 4
+        flops = 3 * fflops
+        q, k, v = (torch.randn(BW, h, N, hd, generator=gen, device="cuda")
+                   .to(bf) for _ in range(3))
+        dout = torch.randn(BW, h, N, hd, generator=gen, device="cuda").to(bf)
+    mask = smoke.window_attn_mask(rel, frag, geo).repeat(B, 1, 1, 1)
+    lib = sdpa_bwd(smoke, q, k, v, mask, dout, scale)
+    torch.cuda.synchronize()
+    return got, want, fn, args, nbytes, flops, lib
+
+
+def run_one(root: str, out_path: str, kernels: str) -> None:
+    """Time the cases of ``kernels`` (all when empty) with the package of
+    ``root``; write a JSON list."""
     sys.path.insert(0, HERE)
     import chip_smoke as smoke  # this checkout's helpers and shapes
 
@@ -105,8 +228,19 @@ def run_one(root: str, out_path: str) -> None:
     bf = torch.bfloat16
     cdm = smoke.attention_cases(gen)
     rows = []
+    keep = {k.strip() for k in kernels.split(",") if k.strip()}
     for kernel, name, spec in _cases(smoke):
-        if kernel in ("K3", "K6"):
+        if keep and kernel not in keep:
+            continue
+        lib = None  # (CUDA-event ms, device ms) of the library yardstick
+        if kernel in ("K5 bwd", "K4 bwd"):
+            got, want, fn, args, nbytes, flops, lib = _backward_case(
+                smoke, kernel, spec, gen)
+            err = max(grad_err(f"{kernel} {name} {i}", a, b, smoke.GRAD_TOL)
+                      for i, (a, b) in enumerate(zip(got, want))
+                      if b is not None)
+            del got, want
+        elif kernel in ("K3", "K6"):
             model, stages, window, stage, shifted = spec
             dims, C, h, use_frag = stages[stage]
             geo = smoke.padded_geometry(dims, C, h, use_frag, shifted, window)
@@ -184,17 +318,20 @@ def run_one(root: str, out_path: str) -> None:
             nbytes = (2 * BW * N * C * 2 + 24 * C * C
                       + (1 + int(frag is not None)) * geo.num_heads * N * N * 4)
             tol = smoke.K1_TOL
-        got, want = fn(*args), plain(*args)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        lim = tol * max(1.0, want.float().abs().max().item())
-        if not (math.isfinite(err) and err <= lim):
-            raise SystemExit(f"{kernel} {name}: max|d| {err} > tol {lim}")
-        del got, want
+        if kernel not in ("K5 bwd", "K4 bwd"):
+            got, want = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            lim = tol * max(1.0, want.float().abs().max().item())
+            if not (math.isfinite(err) and err <= lim):
+                raise SystemExit(f"{kernel} {name}: max|d| {err} > tol {lim}")
+            del got, want
         ms = smoke.cuda_ms(lambda: fn(*args), 20)
+        dms, parts = device_ms(lambda: fn(*args))
         b, by = smoke.bound_ms(nbytes, flops)
         rows.append({"kernel": kernel, "case": name, "ms": ms,
-                     "device_ms": device_ms(lambda: fn(*args)), "err": err,
+                     "device_ms": dms, "parts": parts, "err": err,
+                     "lib_ms": lib and lib[0], "lib_device_ms": lib and lib[1],
                      "bound_ms": b, "bound_by": by})
         del args
         torch.cuda.empty_cache()
@@ -207,11 +344,14 @@ def main() -> int:
     ap.add_argument("--root", action="append", default=[],
                     help="a checkout of the repo (default: this one)")
     ap.add_argument("--out", default="attention_timing.json")
+    ap.add_argument("--kernels", default="",
+                    help='comma-separated kernels to time, e.g. "K5 bwd,K4 '
+                         'bwd" (default: all)')
     ap.add_argument("--one", nargs=2, metavar=("ROOT", "OUT"),
                     help=argparse.SUPPRESS)  # a single run, in a subprocess
     a = ap.parse_args()
     if a.one:
-        run_one(*a.one)
+        run_one(*a.one, a.kernels)
         return 0
     import torch
 
@@ -228,8 +368,8 @@ def main() -> int:
     for i, label in enumerate(order):
         tmp = f"{a.out}.run{i}"
         rc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one", label, tmp]
-        ).returncode
+            [sys.executable, os.path.abspath(__file__), "--one", label, tmp,
+             "--kernels", a.kernels]).returncode
         if rc != 0:
             print(f"FAIL: the run of {label} exited {rc}", flush=True)
             return 1
@@ -242,13 +382,34 @@ def main() -> int:
                 times[key].setdefault(f"{label} device", []).append(
                     row["device_ms"])
                 times[key].setdefault(f"{label} max|d|", []).append(row["err"])
+                times[key].setdefault(f"{label} parts", []).append(
+                    row["parts"])
+                if row["lib_ms"] is not None:
+                    times[key].setdefault(f"{label} sdpa bwd", []).append(
+                        row["lib_ms"])
+                    times[key].setdefault(f"{label} sdpa bwd device", []
+                                          ).append(row["lib_device_ms"])
         os.remove(tmp)
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    def col(t, lab):
+        c = (f"{lab}: {mean(t[lab]):.4f} ms "
+             f"({', '.join(f'{x:.4f}' for x in t[lab])}), device "
+             f"{mean(t[lab + ' device']):.4f} ms")
+        runs = t[lab + " parts"]
+        names = sorted({n for r in runs for n in r})
+        if "dq" in names:  # a backward: its device time by part
+            c += " [" + ", ".join(
+                f"{n} {mean([r.get(n, 0.0) for r in runs]):.4f}"
+                for n in names) + "]"
+        if lab + " sdpa bwd" in t:
+            c += (f", sdpa backward {mean(t[lab + ' sdpa bwd']):.4f} ms "
+                  f"(device {mean(t[lab + ' sdpa bwd device']):.4f})")
+        return c
+
     for (kernel, case), t in times.items():
-        cols = "; ".join(
-            f"{lab}: {sum(t[lab]) / len(t[lab]):.4f} ms "
-            f"({', '.join(f'{x:.4f}' for x in t[lab])}), device "
-            f"{sum(t[lab + ' device']) / len(t[lab]):.4f} ms"
-            for lab in labels)
+        cols = "; ".join(col(t, lab) for lab in labels)
         print(f"{kernel} {case}: {cols}; bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}); {card}", flush=True)
     with open(a.out, "w") as f:
