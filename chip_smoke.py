@@ -14,6 +14,9 @@
    geometries of stages 0-2 and K5 (window_attention_train, forward and
    backward) at stage 3's, unshifted and shifted, with DropPath
    multipliers, output and every gradient against the plain versions;
+   then every product of K1 and K4 (the wgmma GEMM of ops/gemm.py in its
+   forward, dX and dW layouts) at the shipped shapes against an f32
+   torch.matmul, each timed beside one cuBLAS call and its bound;
 5. holds K3 (flash_window_attention_packed) at the four padded stage
    geometries of the Swin-T-3D path and at swin_tiny_grpb_m's padded
    stages 2-3, unshifted and shifted, K6
@@ -194,6 +197,26 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def gemm_sass_check() -> None:
+    """Counts the warpgroup products (HGMMA) in the GEMM library's SASS,
+    with the toolkit's cuobjdump; fails if there are none."""
+    from kvq_tpu_torch.ops import build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    lib = str(build._lib_path("gemm"))
+    if not os.path.exists(tool):
+        print("gemm SASS: cuobjdump not found, not checked", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"gemm SASS: {n} HGMMA (wgmma) instructions in "
+          f"{os.path.basename(lib)}", flush=True)
+    if not n:
+        fail("the GEMM library has no wgmma instruction")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -532,6 +555,181 @@ def train_kernel_phase(card: str):
               f"{lms_b:.4f} ms, bound {bb:.4f} ms ({byb}); {card}",
               flush=True)
     return k4f, k4b, k5f, k5b
+
+
+# The block's products: (product, N, K, epilogue) of one block of width C in
+# the forward layout; forward epilogues: "bias", "gelu" (fc1), "gelu_pre"
+# (fc1 keeping its pre-activation, K4's recompute), "res" (eval residual),
+# "res_dp" (residual with the DropPath multipliers).
+GEMM_TOL = 2e-2      # bf16 outputs, x max(1, max|reference|)
+GEMM_TOL_F32 = 1e-3  # f32 outputs (dX's f32 epilogue, dW's split-K sums)
+
+
+def gemm_cases():
+    """Every product of K1 at the four KSVQE eval stages and of K4 at train
+    stages 0-2: (kernel, stage, product, layout, M, N, K, epilogue, calls),
+    with the calls per KSVQE forward (K1) or per train step (K4: qkv and
+    proj run in the forward and in the backward's recompute, fc1 once
+    without and once with its pre-activation kept, fc2 once; dX and dW once
+    per block).  For dW, M and N are the weight's (out, in) and K the token
+    rows."""
+    out = []
+    for s, (dims, C, _, _) in enumerate(STAGES):
+        M, blocks = math.prod(dims), 2 * (1, 1, 3, 1)[s]
+        for prod, N, K, epi in (("qkv", 3 * C, C, "bias"),
+                                ("proj", C, C, "res"),
+                                ("fc1", 4 * C, C, "gelu"),
+                                ("fc2", C, 4 * C, "res")):
+            out.append(("K1", s, prod, "forward", M, N, K, epi, blocks))
+    for s in range(3):
+        dims, C, _, _ = TRAIN_STAGES[s]
+        M, b = TRAIN_B * math.prod(dims), 2 * TRAIN_REPS[s]
+        for prod, N, K, epi, calls in (
+                ("qkv", 3 * C, C, "bias", 2 * b),
+                ("proj", C, C, "res_dp", 2 * b),
+                ("fc1", 4 * C, C, "gelu", b),
+                ("fc1 keep pre", 4 * C, C, "gelu_pre", b),
+                ("fc2", C, 4 * C, "res_dp", b)):
+            out.append(("K4 fwd", s, prod, "forward", M, N, K, epi, calls))
+        for prod, N, K, epi in (("fc2", 4 * C, C, "gelu_bwd"),
+                                ("fc1", C, 4 * C, "f32"),
+                                ("proj", C, C, "bf16"),
+                                ("qkv", C, 3 * C, "f32")):
+            out.append(("K4 bwd", s, f"{prod} dX", "dx", M, N, K, epi, b))
+        for prod, n_out, n_in in (("fc2", C, 4 * C), ("fc1", 4 * C, C),
+                                  ("proj", C, C), ("qkv", 3 * C, C)):
+            out.append(("K4 bwd", s, f"{prod} dW", "dw", n_out, n_in, M,
+                        "f32", b))
+    return out
+
+
+def gemm_case(case, gen, linear, input_grad, weight_grad):
+    """Inputs on the card for one of :func:`gemm_cases` and (run, reference,
+    cublas, bytes, FLOPs, tol): ``run`` calls the port's wrapper (passed in,
+    so that a timing tool can hand another version's), ``reference`` is an
+    f32 torch.matmul of the same bf16 inputs with the epilogue rounded where
+    the kernel rounds, ``cublas`` one torch call of the same product in bf16
+    (the library yardstick), and bytes count each input and output once."""
+    import torch
+    import torch.nn.functional as F
+
+    _, _, _, layout, M, N, K, epi, _ = case
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(bf)
+
+    if layout == "forward":
+        a, w, bias = rnd(M, K), rnd(N, K, scale=K ** -0.5), rnd(N, scale=0.1)
+        res = rnd(M, N) if epi.startswith("res") else None
+        rows = 8 * 7 * 7  # tokens per window, one DropPath multiplier each
+        dp = (_multipliers(-(-M // rows), 1, gen) if epi == "res_dp"
+              else None)
+        gelu, keep = epi.startswith("gelu"), epi == "gelu_pre"
+
+        def run():
+            return linear(a, w, bias, res=res, gelu=gelu, dp=dp, dp_rows=rows,
+                          keep_pre=keep)[0]
+
+        def reference():
+            v = a.float() @ w.float().T + bias.float()
+            y = (F.gelu(v) if gelu else v).to(bf)
+            if dp is not None:
+                y = (y.float() * dp.repeat_interleave(rows)[:M, None]
+                     ).to(bf)
+            return y if res is None else (res.float() + y.float()).to(bf)
+
+        def cublas():
+            return F.linear(a, w, bias)
+
+        nbytes = 2 * (M * K + N * K + N + M * N * (1 + (res is not None)
+                                                   + keep))
+        tol = GEMM_TOL
+    elif layout == "dx":
+        code = {"f32": 1, "bf16": 3, "gelu_bwd": 4}[epi]
+        dy, w = rnd(M, K), rnd(K, N, scale=K ** -0.5)
+        aux = rnd(M, N) if epi == "gelu_bwd" else None
+
+        def run():
+            return input_grad(dy, w, code, aux)
+
+        def reference():
+            acc = dy.float() @ w.float()
+            if aux is not None:
+                x = aux.float()
+                acc = acc * (0.5 * (1 + torch.erf(x * 2 ** -0.5))
+                             + x * torch.exp(-0.5 * x * x)
+                             * (2 * math.pi) ** -0.5)
+            return acc if epi == "f32" else acc.to(bf)
+
+        def cublas():
+            return torch.matmul(dy, w)
+
+        nbytes = (2 * (M * K + K * N) + M * N * (4 if epi == "f32" else 2)
+                  + (2 * M * N if aux is not None else 0))
+        tol = GEMM_TOL_F32 if epi == "f32" else GEMM_TOL
+    else:  # dW: (M, N) = (n_out, n_in) over K token rows
+        dy, x = rnd(K, M), rnd(K, N)
+
+        def run():
+            return weight_grad(dy, x)
+
+        def reference():
+            return dy.float().T @ x.float()
+
+        def cublas():
+            return torch.matmul(dy.T, x)
+
+        nbytes = 2 * K * (M + N) + 4 * M * N
+        tol = GEMM_TOL_F32
+    return run, reference, cublas, nbytes, 2 * M * N * K, tol
+
+
+def gemm_phase(card: str):
+    """Every product of K1 and K4 (the layouts forward, dX, dW) at the shipped
+    shapes against an f32 torch.matmul of the same inputs, timed beside one
+    cuBLAS call of the same product and its bound; returns per-case rows and
+    the sums per KSVQE forward and per train step."""
+    import torch
+
+    from kvq_tpu_torch.ops import gemm as G
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows, sums = [], {}
+    for case in gemm_cases():
+        kernel, stage, prod, layout, M, N, K, epi, calls = case
+        run, reference, cublas, nbytes, flops, tol = gemm_case(
+            case, gen, G.linear, G.input_grad, G.weight_grad)
+        got, want = run(), reference()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        lim = tol * max(1.0, want.float().abs().max().item())
+        del got, want
+        if not (math.isfinite(err) and err <= lim):
+            fail(f"GEMM {kernel} stage {stage} {prod}: max|d| {err} > {lim}")
+        ms, lms = cuda_ms(run), cuda_ms(cublas)
+        b, by = bound_ms(nbytes, flops)
+        plan = G.plan_gemm(layout, M, N, K, G.sm_count(0))
+        print(f"GEMM {kernel} stage{stage} {prod} ({layout}, M={M} N={N} "
+              f"K={K}, BN={plan.bn}, splits={plan.splits}, {calls} calls): "
+              f"max|d|={err:.4g} (tol {lim:.4g}) kernel {ms:.4f} ms, cuBLAS "
+              f"{lms:.4f} ms, bound {b:.4f} ms ({by}); {card}", flush=True)
+        rows.append({"kernel": kernel, "stage": stage, "product": prod,
+                     "layout": layout, "M": M, "N": N, "K": K, "bn": plan.bn,
+                     "splits": plan.splits, "calls": calls, "err": err,
+                     "ms": ms, "cublas_ms": lms, "bound_ms": b,
+                     "bound_by": by})
+        per = "per forward" if kernel == "K1" else "per step"
+        t = sums.setdefault(f"{kernel} {per}", [0.0, 0.0, 0.0])
+        t[0] += calls * ms
+        t[1] += calls * lms
+        t[2] += calls * b
+        torch.cuda.empty_cache()
+    for key, (ms, lms, b) in sums.items():
+        print(f"GEMM {key}: kernel {ms:.4f} ms, cuBLAS {lms:.4f} ms, bound "
+              f"{b:.4f} ms; {card}", flush=True)
+    return {"rows": rows, "sums": sums}
 
 
 def padded_geometry(dims, C, h, use_frag, shifted, window=(8, 7, 7)):
@@ -1280,9 +1478,11 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "ptxas.txt"), "w") as f:
         f.write("\n".join(f"[{k}]\n{v}" for k, v in reports.items()))
+    gemm_sass_check()
 
     k1, k2 = kernel_phase(card)
     k4f, k4b, k5f, k5b = train_kernel_phase(card)
+    gemm = gemm_phase(card)
     k3, k6, k7 = eval_attention_phase(card)
     run = main_path(card)
     swin = swin_path(card)
@@ -1348,7 +1548,8 @@ def main() -> int:
                    "k4_fwd_rows": k4f["rows"], "k4_bwd_rows": k4b["rows"],
                    "k5_fwd_rows": k5f["rows"], "k5_bwd_rows": k5b["rows"],
                    "k3_rows": k3["rows"], "k6_rows": k6["rows"],
-                   "k7_rows": k7["rows"], "run": run, "swin": swin,
+                   "k7_rows": k7["rows"], "gemm": gemm, "run": run,
+                   "swin": swin,
                    "train": train, "kernels": kernels}, f,
                   indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line

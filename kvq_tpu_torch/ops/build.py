@@ -25,9 +25,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 
 # name -> (exported function, argtypes)
 LIBRARIES = {
+    "gemm": {
+        "kvq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _P),
+        "kvq_gemm_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
     "swin_block": {
-        "kvq_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P),
-        "kvq_gemm_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "kvq_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
         "kvq_layernorm_bwd": (
             _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _P,

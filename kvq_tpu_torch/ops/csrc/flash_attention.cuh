@@ -69,13 +69,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>  // WMMA: swin_block.cu's GEMM
 #include <stdint.h>
 
 namespace kvq {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int kBQ = 64;    // query rows per CTA
 constexpr int kBKV = 64;   // keys per streamed tile

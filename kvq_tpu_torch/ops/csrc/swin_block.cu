@@ -1,5 +1,5 @@
 // K1 and K4: the fused Swin block of the eval and train paths, as short
-// sequences of this file's kernels (replace fused_swin_block /
+// sequences of this file's kernels and gemm.cu's products (replace fused_swin_block /
 // _make_block_kernel and train_swin_block / _make_block_train_bwd_kernel in
 // kvq_tpu/ops/window_attention.py).  Forward (K1; K4 adds the DropPath
 // multipliers dp1, dp2 of each window to the two residual branches):
@@ -16,8 +16,8 @@
 // the attention's row log-sum-exp) and runs the products backward on the
 // same GEMM in its other two layouts: dX = dY @ W (kvq_gemm_bwd, A (M, K),
 // B (K, N)) and dW = dY^T @ X (A and B both (K, *), the rows as the
-// reduction axis, split over blockIdx.z and summed with f32 atomics, since
-// the master weights are f32).  Column sums (kvq_colsum) give the bias
+// reduction axis, split into K ranges over the CTAs and summed with f32
+// atomics, since the master weights are f32).  Column sums (kvq_colsum) give the bias
 // gradients, kvq_layernorm_bwd the LayerNorm input and affine gradients,
 // the GELU derivative is an epilogue, and the attention backward is
 // train_attention.cu.
@@ -28,11 +28,12 @@
 // once, the block's products bound it at every stage (~4x more time at
 // 989 TFLOP/s than its bytes take at 3.35 TB/s); this split adds round trips
 // of the token tensor through device memory, which the L2 partly absorbs at
-// stages 2-3.  The GEMM is a 128x128x32 WMMA tile on eight warps with a
-// three-stage cp.async ring, so the next tiles' loads overlap the current
-// tile's products; the LayerNorm runs as its own bandwidth-bound pass, one
-// warp per row, so the GEMM's inner loop carries no normalisation.  The
-// attention is flash_attention.cuh.
+// stages 2-3.  The products are gemm.cu's wgmma GEMM (TMA-fed tiles, a
+// producer thread and two consumer warpgroups, the epilogues from the
+// accumulator registers), built as a library of its own; the LayerNorm
+// runs as its own bandwidth-bound pass, one warp per row, so the GEMM's
+// inner loop carries no normalisation.  The attention is
+// flash_attention.cuh.
 //
 // Plain C interface, built with nvcc into a shared library and called with
 // ctypes (kvq_tpu_torch/ops/build.py).  Every entry returns the CUDA error
@@ -40,217 +41,6 @@
 #include "flash_attention.cuh"
 
 namespace kvq {
-
-constexpr int kGM = 128, kGN = 128, kGK = 32;
-constexpr int kGStages = 3;
-constexpr int kGThreads = 256;   // 2 x 4 warps, each 64 x 32 of the tile
-constexpr int kGLd = kGK + 8;    // ring row stride of a k-contiguous tile
-constexpr int kGTLd = kGM + 8;   // ring row stride of an m/n-contiguous tile
-constexpr int kGSlot = kGM * kGLd;  // one operand's ring slot (>= 32 x kGTLd)
-constexpr int kGCLd = kGN + 4;   // f32 epilogue staging row stride
-static_assert(kGM == kGN, "one loader serves both operands");
-static_assert(kGSlot >= kGK * kGTLd, "ring slot");
-
-enum GemmEpilogue {
-  kEpiForward = 0,  // bf16 out = [res +] [dp *] bf16([GELU](acc + bias))
-  kEpiF32 = 1,      // f32 out = acc
-  kEpiAtomicF32 = 2,  // f32 out += acc (split-K partial sums)
-  kEpiBf16 = 3,     // bf16 out = acc
-  kEpiGeluBwd = 4,  // bf16 out = acc * GELU'(aux), aux the pre-activation
-};
-
-struct GemmParams {
-  const bf16* a;      // (M, K) row-major; (K, M) when the A tile is transposed
-  const bf16* w;      // (N, K) row-major (nn.Linear's weight); (K, N) when not
-  const bf16* bias;   // (N,)                          kEpiForward
-  const bf16* res;    // (M, N) residual, or nullptr   kEpiForward
-  const float* dp;    // per-row-group branch scale dp[m / dp_rows], or nullptr
-  int dp_rows;
-  bf16* pre;          // (M, N) pre-activation out, or nullptr  kEpiForward
-  const bf16* aux;    // (M, N) GELU pre-activation   kEpiGeluBwd
-  bf16* out;          // (M, N) bf16 result
-  float* out_f32;     // (M, N) f32 result
-  int M, N, K;
-  int gelu;
-  int epi;
-  int k_chunk;        // rows of K per blockIdx.z
-};
-
-constexpr size_t gemm_smem_bytes() {
-  const size_t ring = sizeof(bf16) * kGStages * 2 * kGSlot;
-  const size_t stage = sizeof(float) * kGM * kGCLd;
-  return ring > stage ? ring : stage;
-}
-
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
-
-// d GELU(x) / dx = Phi(x) + x phi(x), exact erf
-__device__ __forceinline__ float gelu_erf_grad(float x) {
-  return 0.5f * (1.f + erff(x * 0.70710678118654752f)) +
-         x * 0.39894228040143268f * __expf(-0.5f * x * x);
-}
-
-// One operand tile into a ring slot.  K_MINOR: a 128 x 32 tile of a
-// (rows, ld) matrix whose k axis is contiguous (rows r0.., cols k0..);
-// otherwise a 32 x 128 tile whose rows are k (k0..) and whose 128 columns
-// (r0..) are contiguous.  Entries past `rows` or past `kend` are zero-filled
-// (the contiguous extent is a multiple of 8).
-template <bool K_MINOR>
-__device__ __forceinline__ void gemm_load_tile(bf16* dst, const bf16* src,
-                                               int rows, int ld, int r0,
-                                               int k0, int kend) {
-  for (int c = threadIdx.x; c < kGM * kGK / 8; c += kGThreads) {
-    if (K_MINOR) {
-      const int r = c / (kGK / 8), col = (c % (kGK / 8)) * 8;
-      const bool v = k0 + col < kend && r0 + r < rows;
-      cp_async16(dst + r * kGLd + col,
-                 v ? src + (long long)(r0 + r) * ld + k0 + col : src, v);
-    } else {
-      const int r = c / (kGM / 8), col = (c % (kGM / 8)) * 8;
-      const bool v = k0 + r < kend && r0 + col < rows;
-      cp_async16(dst + r * kGTLd + col,
-                 v ? src + (long long)(k0 + r) * ld + r0 + col : src, v);
-    }
-  }
-}
-
-// out = epilogue(op(A) @ op(B)) over one 128 x 128 tile; A_T: A is stored
-// (K, M); B_KN: B is stored (K, N).  The forward epilogue rounds
-// (acc + bias [, GELU]) to bf16, scales it by the row's DropPath multiplier
-// (rounding again) and adds the residual, as the TPU kernel does; with no
-// multiplier it is the eval kernel's epilogue unchanged.
-template <bool A_T, bool B_KN>
-__global__ void __launch_bounds__(kGThreads) gemm_kernel(const GemmParams p) {
-  extern __shared__ __align__(128) unsigned char g_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(g_smem);
-
-  const int m0 = blockIdx.y * kGM;
-  const int n0 = blockIdx.x * kGN;
-  const int kbeg = blockIdx.z * p.k_chunk;
-  const int kend = min(p.K, kbeg + p.k_chunk);
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4, wn = warp % 4;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int kt_n = kend > kbeg ? (kend - kbeg + kGK - 1) / kGK : 0;
-  auto load = [&](int slot, int kt) {
-    bf16* sA = ring + slot * 2 * kGSlot;
-    const int k0 = kbeg + kt * kGK;
-    gemm_load_tile<!A_T>(sA, p.a, p.M, A_T ? p.M : p.K, m0, k0, kend);
-    gemm_load_tile<!B_KN>(sA + kGSlot, p.w, p.N, B_KN ? p.N : p.K, n0, k0, kend);
-  };
-#pragma unroll
-  for (int s = 0; s < kGStages - 1; ++s) {
-    if (s < kt_n) load(s, s);
-    cp_async_commit();
-  }
-  using LayoutA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LayoutB = typename std::conditional<B_KN, wmma::row_major, wmma::col_major>::type;
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<kGStages - 2>();  // tile kt has landed
-    __syncthreads();                // ... for every thread; slot kt-1 is free
-    const int nxt = kt + kGStages - 1;
-    if (nxt < kt_n) load(nxt % kGStages, nxt);
-    cp_async_commit();
-    const bf16* sA = ring + (kt % kGStages) * 2 * kGSlot;
-    const bf16* sB = sA + kGSlot;
-#pragma unroll
-    for (int kk = 0; kk < kGK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int mo = wm * 64 + i * 16;
-        if (A_T)
-          wmma::load_matrix_sync(fa[i], sA + kk * 16 * kGTLd + mo, kGTLd);
-        else
-          wmma::load_matrix_sync(fa[i], sA + mo * kGLd + kk * 16, kGLd);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int no = wn * 32 + j * 16;
-        if (B_KN)
-          wmma::load_matrix_sync(fb[j], sB + kk * 16 * kGTLd + no, kGTLd);
-        else
-          wmma::load_matrix_sync(fb[j], sB + no * kGLd + kk * 16, kGLd);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring becomes the epilogue's staging tile
-
-  float* sC = reinterpret_cast<float*>(g_smem);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sC + (wm * 64 + i * 16) * kGCLd + wn * 32 + j * 16,
-                              acc[i][j], kGCLd, wmma::mem_row_major);
-  __syncthreads();
-
-  // eight consecutive outputs per step (N is a multiple of 8)
-  for (int c = threadIdx.x; c < kGM * kGN / 8; c += kGThreads) {
-    const int r = c / (kGN / 8), col = (c % (kGN / 8)) * 8;
-    const int row = m0 + r, gc = n0 + col;
-    if (row >= p.M || gc >= p.N) continue;
-    const float4 c0 = *reinterpret_cast<const float4*>(sC + r * kGCLd + col);
-    const float4 c1 = *reinterpret_cast<const float4*>(sC + r * kGCLd + col + 4);
-    const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-    const long long o = (long long)row * p.N + gc;
-    if (p.epi == kEpiF32) {
-      *reinterpret_cast<float4*>(p.out_f32 + o) = c0;
-      *reinterpret_cast<float4*>(p.out_f32 + o + 4) = c1;
-      continue;
-    }
-    if (p.epi == kEpiAtomicF32) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) atomicAdd(p.out_f32 + o + i, cv[i]);
-      continue;
-    }
-    __align__(16) bf16 y[8];
-    if (p.epi == kEpiBf16) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) y[i] = __float2bfloat16(cv[i]);
-    } else if (p.epi == kEpiGeluBwd) {
-      const uint4 hv = *reinterpret_cast<const uint4*>(p.aux + o);
-      const bf16* he = reinterpret_cast<const bf16*>(&hv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        y[i] = __float2bfloat16(cv[i] * gelu_erf_grad(__bfloat162float(he[i])));
-    } else {
-      const uint4 bv = *reinterpret_cast<const uint4*>(p.bias + gc);
-      const bf16* be = reinterpret_cast<const bf16*>(&bv);
-      uint4 rv = make_uint4(0, 0, 0, 0);
-      if (p.res) rv = *reinterpret_cast<const uint4*>(p.res + o);
-      const bf16* re = reinterpret_cast<const bf16*>(&rv);
-      const float dpv = p.dp ? p.dp[row / p.dp_rows] : 1.f;
-      __align__(16) bf16 pre[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float v = cv[i] + __bfloat162float(be[i]);
-        pre[i] = __float2bfloat16(v);
-        if (p.gelu) v = gelu_erf(v);
-        y[i] = __float2bfloat16(v);
-        if (p.dp) y[i] = __float2bfloat16(__bfloat162float(y[i]) * dpv);
-        if (p.res) y[i] = __float2bfloat16(__bfloat162float(re[i]) + __bfloat162float(y[i]));
-      }
-      if (p.pre)
-        *reinterpret_cast<uint4*>(p.pre + o) = *reinterpret_cast<const uint4*>(pre);
-    }
-    *reinterpret_cast<uint4*>(p.out + o) = *reinterpret_cast<const uint4*>(y);
-  }
-}
 
 // y = LayerNorm(x) over rows of K (a multiple of 8), one warp per row:
 // flax's statistics in f32 (var = mean(x^2) - mean(x)^2), the output
@@ -424,72 +214,9 @@ scale_rows_kernel(const bf16* src, const float* dp, int dp_rows, bf16* dst,
   }
 }
 
-template <bool A_T, bool B_KN>
-cudaError_t launch_gemm(const GemmParams& p, int splits, cudaStream_t stream) {
-  const dim3 grid((p.N + kGN - 1) / kGN, (p.M + kGM - 1) / kGM, splits);
-  constexpr size_t smem = gemm_smem_bytes();
-  cudaFuncSetAttribute(gemm_kernel<A_T, B_KN>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  gemm_kernel<A_T, B_KN><<<grid, kGThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 }  // namespace kvq
 
 using kvq::bf16;
-
-// Forward product out = epilogue(a @ w^T + bias) (K1 and K4).  dp: (M /
-// dp_rows,) f32 DropPath multipliers of the residual branch, or null (the
-// eval call); pre: where to keep the pre-activation, or null.
-extern "C" int kvq_gemm(const bf16* a, const bf16* w, const bf16* bias,
-                        const bf16* res, bf16* out, int M, int N, int K,
-                        int gelu, const float* dp, int dp_rows, bf16* pre,
-                        cudaStream_t stream) {
-  kvq::GemmParams p{};
-  p.a = a;
-  p.w = w;
-  p.bias = bias;
-  p.res = res;
-  p.dp = dp;
-  p.dp_rows = dp_rows;
-  p.pre = pre;
-  p.out = out;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  p.gelu = gelu;
-  p.epi = kvq::kEpiForward;
-  p.k_chunk = K;
-  return (int)kvq::launch_gemm<false, false>(p, 1, stream);
-}
-
-// Backward products (K4).  weight_grad = 0: out = epi(a @ w) with a (M, K)
-// and w (K, N) row-major (dX = dY @ W; epi kEpiF32, kEpiBf16, or
-// kEpiGeluBwd with aux the (M, N) pre-activation).  weight_grad = 1:
-// out_f32 += a^T @ w with a (K, M) and w (K, N) row-major (dW = dY^T @ X),
-// K split over `splits` CTAs along z.
-extern "C" int kvq_gemm_bwd(const bf16* a, const bf16* w, const bf16* aux,
-                            bf16* out, float* out_f32, int M, int N, int K,
-                            int weight_grad, int epi, int splits,
-                            cudaStream_t stream) {
-  kvq::GemmParams p{};
-  p.a = a;
-  p.w = w;
-  p.aux = aux;
-  p.out = out;
-  p.out_f32 = out_f32;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  p.epi = weight_grad ? kvq::kEpiAtomicF32 : epi;
-  if (!weight_grad) splits = 1;
-  splits = splits < 1 ? 1 : splits;
-  const int kc = (K + splits - 1) / splits;
-  p.k_chunk = (kc + kvq::kGK - 1) / kvq::kGK * kvq::kGK;
-  splits = (K + p.k_chunk - 1) / p.k_chunk;
-  if (weight_grad) return (int)kvq::launch_gemm<true, true>(p, splits, stream);
-  return (int)kvq::launch_gemm<false, true>(p, 1, stream);
-}
 
 extern "C" int kvq_layernorm(const bf16* x, const bf16* g, const bf16* b,
                              bf16* y, int M, int K, float eps,

@@ -33,6 +33,8 @@ import torch.nn.functional as F
 
 from ..nn.layers import LN_EPS, layer_norm
 from . import build
+from . import gemm as gemm_ops
+from .gemm import gelu_grad
 from .window_attention import (
     _BLOCK_KEYS,
     _branch,
@@ -116,13 +118,6 @@ def layer_norm_bwd_plain(dy, x, weight):
     rows = dy.reshape(-1, dy.shape[-1])
     return (r * (dxh - m1 - xhat * m2),
             (rows * xhat.reshape(rows.shape)).sum(0), rows.sum(0))
-
-
-def gelu_grad(x):
-    """d GELU(x) / dx for the exact-erf GELU, float32."""
-    xf = x.float()
-    return (0.5 * (1 + torch.erf(xf * 2 ** -0.5))
-            + xf * torch.exp(-0.5 * xf * xf) * (2 * torch.pi) ** -0.5)
 
 
 def _rows(t):
@@ -354,7 +349,9 @@ def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
     p = params
     hidden = p["fc1_w"].shape[0]
     lib = build.load("swin_block")
+    glib = build.load("gemm")
     stream = _stream(dev)
+    sms = gemm_ops.sm_count(dev.index)
     f32, bf = torch.float32, torch.bfloat16
 
     def zeros(*shape):
@@ -363,22 +360,20 @@ def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
     def weight_grad(dy, xin, n_out, n_in):
         """f32 (n_out, n_in) = dy^T @ xin over the M rows, split along M."""
         out = zeros(n_out, n_in)
-        tiles = -(-n_out // 128) * -(-n_in // 128)
-        splits = max(1, min(-(-M // 512), 528 // tiles))
-        build.check(lib.kvq_gemm_bwd(
-            _ptr(dy), _ptr(xin), None, None, _ptr(out), n_out, n_in, M, 1,
-            0, splits, stream), "train_swin_block weight gradient")
+        gemm_ops.launch_weight_grad(glib, stream, sms, _ptr(dy), _ptr(xin),
+                                    _ptr(out), n_out, n_in, M)
         return out
 
     def input_grad(dy, w, n_in, k, epi, aux=None):
-        """dy (M, k) @ w (k, n_in): f32 (epi 1), bf16 (3), or bf16 times
-        the GELU derivative at ``aux`` (4)."""
-        out = torch.empty((M, n_in), dtype=f32 if epi == 1 else bf,
+        """dy (M, k) @ w (k, n_in): f32 (EPI_F32), bf16 (EPI_BF16), or bf16
+        times the GELU derivative at ``aux`` (EPI_GELU_BWD)."""
+        f32_out = epi == gemm_ops.EPI_F32
+        out = torch.empty((M, n_in), dtype=f32 if f32_out else bf,
                           device=dev)
-        build.check(lib.kvq_gemm_bwd(
-            _ptr(dy), _ptr(w), _ptr(aux), None if epi == 1 else _ptr(out),
-            _ptr(out) if epi == 1 else None, M, n_in, k, 0, epi, 1, stream,
-        ), "train_swin_block input gradient")
+        gemm_ops.launch_input_grad(
+            glib, stream, sms, _ptr(dy), _ptr(w), _ptr(aux),
+            None if f32_out else _ptr(out), _ptr(out) if f32_out else None,
+            M, n_in, k, epi)
         return out
 
     def colsum(a, dp=None):
@@ -411,15 +406,16 @@ def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
                                        M, C, stream),
                     "train_swin_block scale rows")
         g["fc2_w"] = weight_grad(dm2, fw["hmid"], C, hidden)
-        dh1 = input_grad(dm2, p["fc2_w"], hidden, C, 4, fw["pre"])
+        dh1 = input_grad(dm2, p["fc2_w"], hidden, C, gemm_ops.EPI_GELU_BWD,
+                         fw["pre"])
         g["fc1_b"] = colsum(dh1)
         g["fc1_w"] = weight_grad(dh1, fw["y2"], hidden, C)
-        dy2 = input_grad(dh1, p["fc1_w"], C, hidden, 1)
+        dy2 = input_grad(dh1, p["fc1_w"], C, hidden, gemm_ops.EPI_F32)
         dx1, g["norm2_scale"], g["norm2_bias"], datt = ln_bwd(
             fw["x1"], p["norm2_scale"], dy2, dout, f32, dp1)
         g["proj_b"] = colsum(dx1, dp1)
         g["proj_w"] = weight_grad(datt, fw["att"], C, C)
-        dao = input_grad(datt, p["proj_w"], C, C, 3)
+        dao = input_grad(datt, p["proj_w"], C, C, gemm_ops.EPI_BF16)
         dqkv = torch.empty((M, 3 * C), dtype=bf, device=dev)
         drel = torch.zeros_like(rel_bias)
         dfrag = None if frag_bias is None else torch.zeros_like(frag_bias)
@@ -429,7 +425,7 @@ def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
                             (dq, dq + el, dq + 2 * el, drel, dfrag))
         g["qkv_b"] = colsum(dqkv)
         g["qkv_w"] = weight_grad(dqkv, fw["y1"], 3 * C, C)
-        dy1 = input_grad(dqkv, p["qkv_w"], C, 3 * C, 1)
+        dy1 = input_grad(dqkv, p["qkv_w"], C, 3 * C, gemm_ops.EPI_F32)
         dx, g["norm1_scale"], g["norm1_bias"], _ = ln_bwd(
             x, p["norm1_scale"], dy1, dx1, bf)
     train_swin_block_bwd.launches += 1

@@ -5,8 +5,9 @@ tokens (LN1 -> qkv -> window attention with the gate-blended rel/frag bias
 and the seam mask -> proj -> +res -> LN2 -> MLP(GELU) -> +res).  Replaces
 ``fused_swin_block`` of ``kvq_tpu/ops/window_attention.py``; on the card it
 is a sequence of this repository's CUDA kernels (``csrc/swin_block.cu``:
-a LayerNorm pass, a pipelined WMMA GEMM with bias/GELU/residual epilogues,
-and the flash window attention of ``csrc/flash_attention.cuh``).
+a LayerNorm pass, the wgmma GEMM of ``csrc/gemm.cuh`` with bias/GELU/residual
+epilogues (:mod:`.gemm`), and the flash window attention of
+``csrc/flash_attention.cuh``).
 
 K2 :func:`flash_attention_nobias_cl` — batched multi-head attention with no
 bias or mask in channel layout, the CDM attentions.  Replaces
@@ -44,6 +45,7 @@ import torch.nn.functional as F
 
 from ..nn.layers import LN_EPS, layer_norm
 from . import build
+from . import gemm as gemm_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -314,16 +316,17 @@ def block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale,
     dev = x.device
     hidden = params["fc1_w"].shape[0]
     lib = build.load("swin_block")
+    glib = build.load("gemm")
     stream = _stream(dev)
+    sms = gemm_ops.sm_count(dev.index)
     M = BW * N
     p = params
 
     def gemm(a, w, b, res, n, k, gelu, dp=None, pre=None):
         out = torch.empty((M, n), dtype=torch.bfloat16, device=dev)
-        build.check(lib.kvq_gemm(
-            _ptr(a), _ptr(w), _ptr(b), _ptr(res), _ptr(out), M, n, k,
-            int(gelu), _ptr(dp), N, _ptr(pre), stream,
-        ), "swin block gemm")
+        gemm_ops.launch_forward(glib, stream, sms, _ptr(a), _ptr(w), _ptr(b),
+                                _ptr(res), _ptr(out), M, n, k, gelu,
+                                _ptr(dp), N, _ptr(pre))
         return out
 
     def norm(a, g, b):

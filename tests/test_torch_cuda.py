@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from kvq_tpu_torch.ops import gemm as G
 from kvq_tpu_torch.ops import train_attention as TA
 from kvq_tpu_torch.ops import window_attention as TWA
 
@@ -324,3 +325,71 @@ def test_attention_nobias_heads_kernel_matches_plain(cuda, hd, N, M):
         TWA.flash_attention_nobias(
             q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
 
+
+
+# The block's products: ragged M (2352 + 37 rows: 19 row tiles, the last one
+# 85 rows short), N and K at the shipped widths, every layout and epilogue
+# with the plan's tile width, and every tile width at one shape.
+_GEMM_CASES = ("fwd_bias", "fwd_gelu_pre", "fwd_droppath_res", "dx_f32",
+               "dx_bf16", "dx_gelu", "dw")
+_GEMM_PARAMS = (
+    [(c, n, k, None) for c in _GEMM_CASES for n in (96, 288, 384, 768, 2304)
+     for k in (96, 384, 3072)]
+    + [(c, 384, 384, bn) for c in ("fwd_droppath_res", "dx_gelu", "dw")
+       for bn in G.WIDTHS])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,N,K,bn", _GEMM_PARAMS)
+def test_gemm_kernel_matches_f32_matmul(cuda, case, N, K, bn):
+    """Each layout and epilogue against its plain version: an f32
+    torch.matmul (full f32: TF32 is off) of the same bf16 inputs with the
+    epilogue in f32, rounded where the kernel rounds.  Both sum exact
+    products in f32 in different orders, so a bf16 output may round the
+    other way: up to one bf16 ulp per rounding (three in the residual
+    epilogue), held to 2e-2 of the output scale; f32 outputs (dX f32 and
+    dW's split-K atomics over the 2,389 rows) to 1e-3 of it."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(N * 7 + K)
+    M = 2352 + 37
+    bf = torch.bfloat16
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32)).to(cuda, bf)
+
+    if case.startswith("fwd"):
+        a, w, bias = r(M, K), r(N, K, scale=K ** -0.5), r(N, scale=0.1)
+        kw = {}
+        if case == "fwd_gelu_pre":
+            kw = dict(gelu=True, keep_pre=True)
+        if case == "fwd_droppath_res":
+            rows = 49
+            kw = dict(res=r(M, N), dp_rows=rows,
+                      dp=_multipliers(-(-M // rows), 4, cuda))
+        out, pre = G.linear(a, w, bias, bn=bn, **kw)
+        kw.pop("keep_pre", None)
+        want, want_pre = G.linear_plain(a, w, bias, **kw)
+        got = [(out, want)] + ([(pre, want_pre)] if pre is not None else [])
+        tol = 2e-2
+    elif case.startswith("dx"):
+        epi = {"dx_f32": G.EPI_F32, "dx_bf16": G.EPI_BF16,
+               "dx_gelu": G.EPI_GELU_BWD}[case]
+        dy, w = r(M, K), r(K, N, scale=K ** -0.5)
+        aux = r(M, N) if epi == G.EPI_GELU_BWD else None
+        out = G.input_grad(dy, w, epi, aux, bn=bn)
+        got = [(out, G.input_grad_plain(dy, w, epi, aux))]
+        assert out.dtype == (torch.float32 if epi == G.EPI_F32 else bf)
+        tol = 1e-3 if epi == G.EPI_F32 else 2e-2
+    else:
+        dy, x = r(M, N), r(M, K)
+        out = G.weight_grad(dy, x, bn=bn)
+        got = [(out, G.weight_grad_plain(dy, x))]
+        assert out.dtype == torch.float32
+        tol = 1e-3
+    torch.cuda.synchronize()
+    for out, want in got:
+        assert out.shape == want.shape
+        scale = max(1.0, want.float().abs().max().item())
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= tol * scale, (case, N, K, bn, err, scale)

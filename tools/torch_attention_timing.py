@@ -7,6 +7,8 @@ card in one run.
 
     python3 tools/torch_attention_timing.py --root OLD --root NEW \
         [--kernels "K5 bwd,K4 bwd"] [--out attention_timing.json]
+    python3 tools/torch_attention_timing.py --root OLD --root NEW \
+        --kernels gemm
 
 Every kernel that launches the body is timed at chip_smoke.py's shapes:
 K3 at the four padded stage geometries of swin_tiny_grpb and the two of
@@ -27,8 +29,15 @@ the DQ, DK/DV and bias passes (the PASS argument of
 ``attention_bwd_kernel``), the D row sums, and the rest (K4's products and
 LayerNorms); and it is timed beside SDPA's backward through autograd on
 the same q, k, v with the blended bias and seam mask as a float mask (the
-library yardstick; for K4 at its attention's shapes).  Prints one line per
-case and version and writes every time to ``--out``.
+library yardstick; for K4 at its attention's shapes).  ``--kernels gemm``
+times the Swin block's products instead (``ops/gemm.py``): every product of
+K1 at the four KSVQE eval stages and of K4 at train stages 0-2, forward, dX
+and dW (chip_smoke.py's ``gemm_cases``), each checked against an f32
+torch.matmul and timed beside one cuBLAS call of the same product
+(``F.linear`` or ``torch.matmul`` in bf16) and its bound; then the sums per
+KSVQE forward and per train step.  A checkout from before ``ops/gemm.py``
+is driven through its C entries with their earlier signatures.  Prints one
+line per case and version and writes every time to ``--out``.
 Imports nothing of JAX.
 """
 
@@ -82,7 +91,82 @@ def _cases(smoke):
         for shifted in (False, True):
             out.append(("K4 bwd", f"train stage{stage} shift={int(shifted)}",
                         (stage, shifted)))
+    for case in smoke.gemm_cases():
+        kernel, stage, prod, layout, M, N, K, _, _ = case
+        out.append(("gemm", f"{kernel} stage{stage} {prod} ({layout} M={M} "
+                    f"N={N} K={K})", case))
     return out
+
+
+def _legacy_gemm_fns():
+    """linear, input_grad and weight_grad for a checkout from before
+    ops/gemm.py: its kvq_gemm and kvq_gemm_bwd, in the swin_block library,
+    with their earlier signatures and dW split."""
+    import torch
+
+    from kvq_tpu_torch.ops import build
+
+    lib = build.load("swin_block")
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def linear(a, w, bias, res=None, gelu=False, dp=None, dp_rows=1,
+               keep_pre=False):
+        (M, K), N = a.shape, w.shape[0]
+        out = torch.empty((M, N), dtype=bf, device=a.device)
+        pre = torch.empty_like(out) if keep_pre else None
+        build.check(lib.kvq_gemm(ptr(a), ptr(w), ptr(bias), ptr(res),
+                                 ptr(out), M, N, K, int(gelu), ptr(dp),
+                                 dp_rows, ptr(pre), stream()), "gemm")
+        return out, pre
+
+    def input_grad(dy, w, epi, aux=None):
+        (M, K), N = dy.shape, w.shape[1]
+        out = torch.empty((M, N), dtype=f32 if epi == 1 else bf,
+                          device=dy.device)
+        build.check(lib.kvq_gemm_bwd(
+            ptr(dy), ptr(w), ptr(aux), None if epi == 1 else ptr(out),
+            ptr(out) if epi == 1 else None, M, N, K, 0, epi, 1, stream()),
+            "gemm dX")
+        return out
+
+    def weight_grad(dy, x):
+        (R, n_out), n_in = dy.shape, x.shape[1]
+        out = torch.zeros((n_out, n_in), dtype=f32, device=dy.device)
+        tiles = -(-n_out // 128) * -(-n_in // 128)
+        splits = max(1, min(-(-R // 512), 528 // tiles))
+        build.check(lib.kvq_gemm_bwd(ptr(dy), ptr(x), None, None, ptr(out),
+                                     n_out, n_in, R, 1, 0, splits, stream()),
+                    "gemm dW")
+        return out
+
+    return linear, input_grad, weight_grad
+
+
+def _gemm_row(smoke, case, gen, fns):
+    """One product of :func:`chip_smoke.gemm_cases`: checked against its f32
+    reference, timed (CUDA events and device time) beside cuBLAS."""
+    import torch
+
+    run, reference, cublas, nbytes, flops, tol = smoke.gemm_case(
+        case, gen, *fns)
+    got, want = run(), reference()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    lim = tol * max(1.0, want.float().abs().max().item())
+    del got, want
+    if not (math.isfinite(err) and err <= lim):
+        raise SystemExit(f"gemm {case}: max|d| {err} > tol {lim}")
+    b, by = smoke.bound_ms(nbytes, flops)
+    return {"ms": smoke.cuda_ms(run, 20), "device_ms": device_ms(run)[0],
+            "parts": {}, "err": err, "lib_ms": smoke.cuda_ms(cublas, 20),
+            "lib_device_ms": device_ms(cublas)[0], "lib_name": "cublas",
+            "calls": case[-1], "bound_ms": b, "bound_by": by}
 
 
 def _part(name: str) -> str:
@@ -208,9 +292,9 @@ def _backward_case(smoke, kernel, spec, gen):
     return got, want, fn, args, nbytes, flops, lib
 
 
-def run_one(root: str, out_path: str, kernels: str) -> None:
-    """Time the cases of ``kernels`` (all when empty) with the package of
-    ``root``; write a JSON list."""
+def run_one(root: str, out_path: str, kernels: str, match: str = "") -> None:
+    """Time the cases of ``kernels`` (all when empty) whose names contain
+    ``match`` with the package of ``root``; write a JSON list."""
     sys.path.insert(0, HERE)
     import chip_smoke as smoke  # this checkout's helpers and shapes
 
@@ -229,8 +313,20 @@ def run_one(root: str, out_path: str, kernels: str) -> None:
     cdm = smoke.attention_cases(gen)
     rows = []
     keep = {k.strip() for k in kernels.split(",") if k.strip()}
+    if "gemm" in keep:
+        try:
+            from kvq_tpu_torch.ops import gemm as G
+            gemm_fns = (G.linear, G.input_grad, G.weight_grad)
+        except ImportError:
+            gemm_fns = _legacy_gemm_fns()
     for kernel, name, spec in _cases(smoke):
-        if keep and kernel not in keep:
+        if (keep and kernel not in keep or not keep and kernel == "gemm"
+                or match not in name):
+            continue
+        if kernel == "gemm":
+            rows.append({"kernel": kernel, "case": name,
+                         **_gemm_row(smoke, spec, gen, gemm_fns)})
+            torch.cuda.empty_cache()
             continue
         lib = None  # (CUDA-event ms, device ms) of the library yardstick
         if kernel in ("K5 bwd", "K4 bwd"):
@@ -346,12 +442,15 @@ def main() -> int:
     ap.add_argument("--out", default="attention_timing.json")
     ap.add_argument("--kernels", default="",
                     help='comma-separated kernels to time, e.g. "K5 bwd,K4 '
-                         'bwd" (default: all)')
+                         'bwd", or "gemm" for the block\'s products (default: '
+                         'every attention kernel)')
+    ap.add_argument("--match", default="",
+                    help="time only the cases whose names contain this")
     ap.add_argument("--one", nargs=2, metavar=("ROOT", "OUT"),
                     help=argparse.SUPPRESS)  # a single run, in a subprocess
     a = ap.parse_args()
     if a.one:
-        run_one(*a.one, a.kernels)
+        run_one(*a.one, a.kernels, a.match)
         return 0
     import torch
 
@@ -369,7 +468,7 @@ def main() -> int:
         tmp = f"{a.out}.run{i}"
         rc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", label, tmp,
-             "--kernels", a.kernels]).returncode
+             "--kernels", a.kernels, "--match", a.match]).returncode
         if rc != 0:
             print(f"FAIL: the run of {label} exited {rc}", flush=True)
             return 1
@@ -385,10 +484,14 @@ def main() -> int:
                 times[key].setdefault(f"{label} parts", []).append(
                     row["parts"])
                 if row["lib_ms"] is not None:
-                    times[key].setdefault(f"{label} sdpa bwd", []).append(
+                    lib = row.get("lib_name", "sdpa bwd")
+                    times[key]["lib"] = lib
+                    times[key].setdefault(f"{label} {lib}", []).append(
                         row["lib_ms"])
-                    times[key].setdefault(f"{label} sdpa bwd device", []
+                    times[key].setdefault(f"{label} {lib} device", []
                                           ).append(row["lib_device_ms"])
+                if "calls" in row:
+                    times[key]["calls"] = row["calls"]
         os.remove(tmp)
     def mean(xs):
         return sum(xs) / len(xs)
@@ -403,17 +506,33 @@ def main() -> int:
             c += " [" + ", ".join(
                 f"{n} {mean([r.get(n, 0.0) for r in runs]):.4f}"
                 for n in names) + "]"
-        if lab + " sdpa bwd" in t:
-            c += (f", sdpa backward {mean(t[lab + ' sdpa bwd']):.4f} ms "
-                  f"(device {mean(t[lab + ' sdpa bwd device']):.4f})")
+        lib = t.get("lib")
+        if lib:
+            c += (f", {'sdpa backward' if lib == 'sdpa bwd' else lib} "
+                  f"{mean(t[f'{lab} {lib}']):.4f} ms (device "
+                  f"{mean(t[f'{lab} {lib} device']):.4f})")
         return c
 
+    sums: dict = {}  # the products' device ms per forward / step
     for (kernel, case), t in times.items():
         cols = "; ".join(col(t, lab) for lab in labels)
         print(f"{kernel} {case}: {cols}; bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}); {card}", flush=True)
+        if kernel == "gemm":
+            per = case.split(" stage")[0]
+            per = f"{per} per {'forward' if per == 'K1' else 'step'}"
+            for lab in labels + ["cublas", "bound"]:
+                x = (t["bound_ms"] if lab == "bound" else
+                     mean(t[f"{labels[0]} cublas device"]) if lab == "cublas"
+                     else mean(t[f"{lab} device"]))
+                sums.setdefault(per, {}).setdefault(lab, 0.0)
+                sums[per][lab] += t["calls"] * x
+    for per, by in sums.items():
+        print(f"gemm {per}, device ms: " + ", ".join(
+            f"{lab} {x:.4f}" for lab, x in by.items()) + f"; {card}",
+            flush=True)
     with open(a.out, "w") as f:
-        json.dump({"card": card, "versions": labels,
+        json.dump({"card": card, "versions": labels, "gemm_sums": sums,
                    "times": [{"kernel": k, "case": c, **t}
                              for (k, c), t in times.items()]}, f, indent=1)
     return 0
