@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Runs the port's main paths — KSVQE eval scoring, Swin-T-3D eval scoring
-(the swin_tiny_grpb model key) and KSVQE training — on one NVIDIA GPU.
+(the swin_tiny_grpb model key), KSVQE training and swin_tiny_grpb training
+— on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -13,10 +14,13 @@
 4. holds K4 (train_swin_block, forward and backward) at the train
    geometries of stages 0-2 and K5 (window_attention_train, forward and
    backward) at stage 3's, unshifted and shifted, with DropPath
-   multipliers, output and every gradient against the plain versions;
-   then every product of K1 and K4 (the wgmma GEMM of ops/gemm.py in its
-   forward, dX and dW layouts) at the shipped shapes against an f32
-   torch.matmul, each timed beside one cuBLAS call and its bound;
+   multipliers, output and every gradient against the plain versions; K5
+   again at the four padded stage geometries of swin_tiny_grpb training
+   (B=4, 16x72x72 tokens padded to 77, 42, 21, 14; seam masks, the gated
+   fragment bias on stages 0-2); then every product of K1 and K4 (the
+   wgmma GEMM of ops/gemm.py in its forward, dX and dW layouts) at the
+   shipped shapes against an f32 torch.matmul, each timed beside one
+   cuBLAS call and its bound;
 5. holds K3 (flash_window_attention_packed) at the four padded stage
    geometries of the Swin-T-3D path and at swin_tiny_grpb_m's padded
    stages 2-3, unshifted and shifted, K6
@@ -31,13 +35,19 @@
    KVQ val config (B=1, 96x288x288 as one clip): 12 K3 launches per forward
    and no other kernel; then one forward of swin_tiny_grpb_m (4 K1 and 8 K3
    launches at N=64) against its plain path;
-8. trains the same model at full width through ``Trainer`` (f32 masters,
-   bf16 compute) on seeded batches of the shipped train shapes (B=4, T=32):
+8. trains KSVQE at full width through ``Trainer`` (f32 masters, bf16
+   compute) on seeded batches of the shipped train shapes (B=4, T=32):
    one kernel-path step against one plain-path step from the same weights
    and seed (loss and every gradient), then timed steps that must launch
    K4 10 + 10 and K5 2 + 2 times each, with a finite loss, finite updated
    parameters and a moving EMA;
-9. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
+9. trains swin_tiny_grpb the same way on the technical view (B=4,
+   32x288x288, remat on): a kernel-path step against a plain-path step,
+   remat on against remat off, timed steps that must launch K5 24 + 12
+   times a step (the recompute repeats the forward), a step at remat off
+   (12 + 12), peak memory with remat on and off, then ``train_eval``
+   (evaluate on the raw and EMA weights, the best-weights files);
+10. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
    records, and as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is absent, when the package is not
@@ -49,6 +59,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -162,12 +173,33 @@ def swin_config(key: str, use_pallas: bool = True) -> dict:
     }}
 
 
-TRAIN_CONFIG = {  # config/Kwai_KSVQE.yml's schedule, optimizer and EMA
-    **KSVQE_CONFIG,
+SCHEDULE = {  # config/Kwai_KSVQE.yml's schedule, optimizer and EMA
     "num_epochs": 50, "warmup_epochs": 2.5, "ema": True, "ema_decay": 0.999,
     "batch_size": TRAIN_B,
     "optimizer": {"lr": 3e-5, "wd": 0.05, "backbone_lr_mult": 1.0},
 }
+TRAIN_CONFIG = {**KSVQE_CONFIG, **SCHEDULE}
+
+# swin_tiny_grpb fine-tuned on the KVQ technical view (FAST-VQA's trunk;
+# config/Kwai_KSVQE.yml's train view: 9x9 fragments of 32 px, 32 frames),
+# B=4, with that schedule.  The trunk runs at 16x72x72 tokens, which no
+# stage's (8, 7, 7) window divides (72, 36, 18, 9 pad to 77, 42, 21, 14):
+# all 12 blocks take K5 around the plain LayerNorm/MLP, none K4.
+SWIN_TRAIN_STAGES = [  # (dims after patch embed/merges, C, heads, frag)
+    ((16, 72, 72), 96, 3, True),
+    ((16, 36, 36), 192, 6, True),
+    ((16, 18, 18), 384, 12, True),
+    ((16, 9, 9), 768, 24, False),
+]
+SWIN_TRAIN_STEPS = 3  # timed steps after the compared ones
+
+
+def swin_train_config(use_pallas: bool = True, remat: bool = True) -> dict:
+    """swin_tiny_grpb's training config: remat on unless ``remat`` is
+    false (JAX's default for a backbone config that says nothing)."""
+    cfg = swin_config("swin_tiny_grpb", use_pallas)
+    cfg["model"]["args"]["swin_tiny_grpb"]["backbone"]["checkpoint"] = remat
+    return {**cfg, **SCHEDULE}
 
 
 def fail(msg: str) -> None:
@@ -416,11 +448,9 @@ def train_kernel_phase(card: str):
     T=32), forward and backward, against their plain versions; returns
     timing records of the calls of one train step."""
     import torch
-    import torch.nn.functional as F
 
     from kvq_tpu_torch.ops import train_attention as TA
-    from kvq_tpu_torch.ops.window_attention import (
-        fused_swin_block_plain, gate_and_mask)
+    from kvq_tpu_torch.ops.window_attention import fused_swin_block_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     k4f, k4b, k5f, k5b = _agg(), _agg(), _agg(), _agg()
@@ -483,78 +513,108 @@ def train_kernel_phase(card: str):
             del args, x, params, dout
             torch.cuda.empty_cache()
     dims, C, h, use_frag = TRAIN_STAGES[3]
-    for shift in ((0, 0, 0), (4, 0, 0)):
-        from kvq_tpu_torch.nn.swin import expand_bias_planes, get_window_size
-        from kvq_tpu_torch.ops.window_attention import WindowGeometry
-
-        win, sh = get_window_size(dims, (8, 7, 7), shift)
-        geo = WindowGeometry(batch=TRAIN_B, dims=dims, window=win, shift=sh,
-                             fragments=(1, 7, 7), num_heads=h,
-                             head_dim=C // h, use_frag=use_frag)
-        N, hd, nW = geo.n_tokens, geo.head_dim, geo.n_windows
-        BW = TRAIN_B * nW
-        scale = hd ** -0.5
-        q, k, v, dout = (torch.randn(BW, h, N, hd, generator=gen,
-                                     device="cuda").to(torch.bfloat16)
-                         for _ in range(4))
-        rel = expand_bias_planes(
-            torch.randn(15 * 13 * 13, h, generator=gen, device="cuda") * 0.5,
-            (8, 7, 7), N)
-        frag = None
-        args = (q, k, v, rel, frag, geo, scale)
-        out, lse = TA.window_attention_train_fwd(*args)
-        ref = TA.window_attention_train_plain(*args)
-        grads = TA.window_attention_train_bwd(*args, out, lse, dout)
-        want = TA.window_attention_train_bwd_plain(*args, out, dout)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = K2_TOL * max(1.0, ref.float().abs().max().item())
-        if not (math.isfinite(err) and err <= tol):
-            fail(f"K5 forward shift {sh}: max|d| {err}")
-        tag = f"K5 stage3 shift={sh}"
-        gerr = {n: _grad_err(f"{tag} {n}", a, b)
-                for n, a, b in zip(("dq", "dk", "dv", "drel"), grads, want)}
-        ms_f = cuda_ms(lambda: TA.window_attention_train_fwd(*args), 20)
-        pms_f = cuda_ms(lambda: TA.window_attention_train_plain(*args), 5)
-        ms_b = cuda_ms(lambda: TA.window_attention_train_bwd(
-            *args, out, lse, dout), 20)
-        pms_b = cuda_ms(lambda: TA.window_attention_train_bwd_plain(
-            *args, out, dout), 5)
-        # the library yardstick: SDPA on the same q, k, v with the blended
-        # bias and seam mask materialised as a float mask, forward, and its
-        # backward into q, k, v and the mask
-        _, mask = gate_and_mask(geo, "cuda")
-        bias = (rel[None].expand(nW, -1, -1, -1) if mask is None
-                else rel[None] + mask[:, None])
-        bias = (bias.repeat(TRAIN_B, 1, 1, 1).to(torch.bfloat16)
-                .requires_grad_())
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        lms_f = cuda_ms(lambda: F.scaled_dot_product_attention(
-            *leaves, attn_mask=bias, scale=scale), 20)
-        y = F.scaled_dot_product_attention(*leaves, attn_mask=bias,
-                                           scale=scale)
-        lms_b = cuda_ms(lambda: torch.autograd.grad(
-            y, leaves + [bias], dout, retain_graph=True), 20)
-        del y, bias, leaves
-        planes = h * N * N * 4
-        flops_f = 4 * BW * h * N * N * hd
-        by_f = 4 * BW * h * N * hd * 2 + planes + BW * h * N * 4
-        by_b = 8 * BW * h * N * hd * 2 + 2 * planes + BW * h * N * 4
-        bf, byf = bound_ms(by_f, flops_f)
-        bb, byb = bound_ms(by_b, 2.5 * flops_f)
-        _add(k5f, 1, ms_f, pms_f, by_f, flops_f, err, lms_f)
-        _add(k5b, 1, ms_b, pms_b, by_b, 2.5 * flops_f, max(gerr.values()),
-             lms_b)
-        k5f["rows"].append((3, sh, BW, C, err, ms_f, pms_f, lms_f, bf, byf))
-        k5b["rows"].append((3, sh, BW, C, gerr, ms_b, pms_b, lms_b, bb, byb))
-        print(f"{tag} BW={BW} h={h}: forward max|d|={err:.4g} (tol "
-              f"{tol:.4g}) kernel {ms_f:.4f} ms, plain {pms_f:.4f} ms, sdpa "
-              f"{lms_f:.4f} ms, bound {bf:.4f} ms ({byf}); backward max|d| "
-              f"by grad {json.dumps({n: float(f'{e:.3g}') for n, e in gerr.items()})}"
-              f" kernel {ms_b:.4f} ms, plain {pms_b:.4f} ms, sdpa backward "
-              f"{lms_b:.4f} ms, bound {bb:.4f} ms ({byb}); {card}",
-              flush=True)
+    for shifted in (False, True):
+        geo = padded_geometry(dims, C, h, use_frag, shifted, batch=TRAIN_B)
+        k5_case(geo, gen, card, "K5 KSVQE stage3", 1, k5f, k5b)
     return k4f, k4b, k5f, k5b
+
+
+def k5_case(geo, gen, card, tag, reps, k5f, k5b):
+    """K5 forward and backward at ``geo`` (seeded bf16 q, k, v, dout and
+    the planes of seeded tables) against the plain versions (out, lse'd
+    backward: dq, dk, dv, drel, dfrag), timed beside the plain versions
+    and SDPA (the blended bias and seam mask as its float mask, backward
+    into q, k, v and the mask); adds ``reps`` x the times to the records
+    ``k5f``/``k5b``."""
+    import torch
+    import torch.nn.functional as F
+
+    from kvq_tpu_torch.nn.swin import expand_bias_planes
+    from kvq_tpu_torch.ops import train_attention as TA
+
+    N, hd, h, nW = geo.n_tokens, geo.head_dim, geo.num_heads, geo.n_windows
+    BW = geo.batch * nW
+    scale = hd ** -0.5
+    q, k, v, dout = (torch.randn(BW, h, N, hd, generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    tl = math.prod(2 * w - 1 for w in (8, 7, 7))
+    rel, frag = (expand_bias_planes(torch.randn(
+        tl, h, generator=gen, device="cuda") * 0.5, (8, 7, 7), N)
+        for _ in range(2))
+    if not geo.use_frag:
+        frag = None
+    args = (q, k, v, rel, frag, geo, scale)
+    out, lse = TA.window_attention_train_fwd(*args)
+    ref = TA.window_attention_train_plain(*args)
+    grads = TA.window_attention_train_bwd(*args, out, lse, dout)
+    want = TA.window_attention_train_bwd_plain(*args, out, dout)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = K2_TOL * max(1.0, ref.float().abs().max().item())
+    tag = f"{tag} shift={geo.shift}"
+    if not (math.isfinite(err) and err <= tol):
+        fail(f"{tag} forward: max|d| {err}")
+    gerr = {n: _grad_err(f"{tag} {n}", a, b)
+            for n, a, b in zip(("dq", "dk", "dv", "drel", "dfrag"), grads,
+                               want) if b is not None}
+    del ref, grads, want
+    iters = max(2, min(20, int(2e7 // (BW * h * N))))
+    ms_f = cuda_ms(lambda: TA.window_attention_train_fwd(*args), iters)
+    pms_f = cuda_ms(lambda: TA.window_attention_train_plain(*args), 2)
+    ms_b = cuda_ms(lambda: TA.window_attention_train_bwd(
+        *args, out, lse, dout), iters)
+    pms_b = cuda_ms(lambda: TA.window_attention_train_bwd_plain(
+        *args, out, dout), 2)
+    bias = (window_attn_mask(rel, frag, geo).repeat(geo.batch, 1, 1, 1)
+            .requires_grad_())
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    lms_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *leaves, attn_mask=bias, scale=scale), iters)
+    y = F.scaled_dot_product_attention(*leaves, attn_mask=bias, scale=scale)
+    lms_b = cuda_ms(lambda: torch.autograd.grad(
+        y, leaves + [bias], dout, retain_graph=True), iters)
+    del y, bias, leaves
+    planes = (1 + int(geo.use_frag)) * h * N * N * 4
+    flops_f = 4 * BW * h * N * N * hd
+    by_f = 4 * BW * h * N * hd * 2 + planes + BW * h * N * 4
+    by_b = 8 * BW * h * N * hd * 2 + 2 * planes + BW * h * N * 4
+    bf, byf = bound_ms(by_f, flops_f)
+    bb, byb = bound_ms(by_b, 2.5 * flops_f)
+    _add(k5f, reps, ms_f, pms_f, by_f, flops_f, err, lms_f)
+    _add(k5b, reps, ms_b, pms_b, by_b, 2.5 * flops_f, max(gerr.values()),
+         lms_b)
+    k5f["rows"].append((tag, geo.dims, BW, h, err, ms_f, pms_f, lms_f, bf,
+                        byf))
+    k5b["rows"].append((tag, geo.dims, BW, h, gerr, ms_b, pms_b, lms_b, bb,
+                        byb))
+    print(f"{tag} dims={geo.dims} BW={BW} h={h} frag={geo.use_frag}: "
+          f"forward max|d|={err:.4g} (tol {tol:.4g}) kernel {ms_f:.4f} ms, "
+          f"plain {pms_f:.4f} ms, sdpa {lms_f:.4f} ms, bound {bf:.4f} ms "
+          f"({byf}); backward max|d| by grad "
+          f"{json.dumps({n: float(f'{e:.3g}') for n, e in gerr.items()})}"
+          f" kernel {ms_b:.4f} ms, plain {pms_b:.4f} ms, sdpa backward "
+          f"{lms_b:.4f} ms, bound {bb:.4f} ms ({byb}); {card}", flush=True)
+    del args, q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+
+
+def swin_train_kernel_phase(card: str):
+    """K5 forward and backward at the four padded geometries of
+    swin_tiny_grpb training (B=4, 16x72x72 tokens), unshifted and
+    shifted; the records sum the calls of one forward (12) and one
+    backward (12)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k5f, k5b = _agg(), _agg()
+    for stage, (dims, C, h, use_frag) in enumerate(SWIN_TRAIN_STAGES):
+        for shifted in (False, True):
+            geo = padded_geometry(dims, C, h, use_frag, shifted,
+                                  batch=TRAIN_B)
+            k5_case(geo, gen, card, f"K5 swin_tiny_grpb stage{stage}",
+                    SWIN_REPS[stage], k5f, k5b)
+    return k5f, k5b
 
 
 # The block's products: (product, N, K, epilogue) of one block of width C in
@@ -732,16 +792,18 @@ def gemm_phase(card: str):
     return {"rows": rows, "sums": sums}
 
 
-def padded_geometry(dims, C, h, use_frag, shifted, window=(8, 7, 7)):
-    """The geometry K3 runs at for a block over ``dims`` tokens (B=1): the
-    window and shift after clamping, the dims padded to whole windows."""
+def padded_geometry(dims, C, h, use_frag, shifted, window=(8, 7, 7),
+                    batch=1):
+    """The geometry K3 (eval) or K5 (training) runs at for a block over
+    ``dims`` tokens: the window and shift after clamping, the dims padded
+    to whole windows."""
     from kvq_tpu_torch.nn.swin import get_window_size
     from kvq_tpu_torch.ops.window_attention import WindowGeometry
 
     cfg_shift = tuple(w // 2 for w in window) if shifted else (0, 0, 0)
     win, shift = get_window_size(dims, window, cfg_shift)
     padded = tuple(d + (w - d % w) % w for d, w in zip(dims, win))
-    return WindowGeometry(batch=1, dims=padded, window=win, shift=shift,
+    return WindowGeometry(batch=batch, dims=padded, window=win, shift=shift,
                           fragments=(1, 7, 7), num_heads=h, head_dim=C // h,
                           use_frag=use_frag)
 
@@ -1321,6 +1383,103 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
+def step_agreement(what, ta, tb, aux_a, aux_b, checked_prefix) -> dict:
+    """One train step of trainer ``ta`` against the same step of ``tb``
+    (same weights, batch and generator seed): the loss within LOSS_TOL, all
+    gradients together and each gradient whose name starts with
+    ``checked_prefix`` (the Swin stages, whose gradients the kernels
+    produce) within TRAIN_GRAD_TOL of its norm; prints and fails."""
+    dl = abs(aux_a["total_loss"] - aux_b["total_loss"])
+    ltol = LOSS_TOL * max(1.0, abs(aux_b["total_loss"]))
+    rows, sq_d, sq_p = [], 0.0, 0.0
+    for (name, pa), pb in zip(ta.model.named_parameters(), tb.params):
+        if pa.grad is None:
+            continue
+        ga, gb = pa.grad.float(), pb.grad.float()
+        d, n = (ga - gb).norm().item(), gb.norm().item()
+        sq_d, sq_p = sq_d + d * d, sq_p + n * n
+        rows.append((d, n, gb.numel(), name))
+    total = math.sqrt(sq_d / max(sq_p, 1e-30))
+    rel = sorted(((d / max(n, 1e-30), d, n, k, nm) for d, n, k, nm in rows),
+                 reverse=True)
+    checked = [r for r in rel if r[4].startswith(checked_prefix)]
+    worst, _, _, _, worst_name = checked[0]
+
+    def show(rs):
+        return [(float(f"{r:.3g}"), float(f"{d:.3g}"), float(f"{n:.3g}"), k,
+                 nm) for r, d, n, k, nm in rs[:6]]
+
+    print(f"{what}: loss {aux_a} vs {aux_b} (|d| {dl:.4g}, tol {ltol:.4g}); "
+          f"{len(rows)} gradients, all together ||g_a - g_b|| / ||g_b|| = "
+          f"{total:.4g} (tol {TRAIN_GRAD_TOL}); the {len(checked)} "
+          f"Swin-stage gradients, worst (rel, |d|, |g_b|, numel, name): "
+          f"{show(checked)} (tol {TRAIN_GRAD_TOL}); all gradients, worst: "
+          f"{show(rel)}", flush=True)
+    if not (math.isfinite(aux_a["total_loss"]) and dl <= ltol):
+        fail(f"{what}: the losses disagree")
+    if not (math.isfinite(total) and total <= TRAIN_GRAD_TOL):
+        fail(f"{what}: the gradients disagree")
+    if not (math.isfinite(worst) and worst <= TRAIN_GRAD_TOL):
+        fail(f"{what}: the gradient of {worst_name} disagrees")
+    return {"loss_a": aux_a, "loss_b": aux_b, "loss_abs_diff": dl,
+            "grad_rel_all": total, "swin_grads": len(checked),
+            "grads_total": len(rows), "worst_swin_grad_rel": worst,
+            "worst_swin_grad_name": worst_name, "worst_grads": rel[:8]}
+
+
+def step_timings(tr, batch, e2e_ms: float, card: str) -> dict:
+    """One train step of ``tr`` on a device-resident batch: its time (CUDA
+    events), the host's dispatch, the profiler's device busy, launch calls
+    and families, and the card's idle share of the step and of ``e2e_ms``,
+    the end-to-end time per step."""
+    import torch
+
+    _, host = tr._prepare(batch)
+    dev = {k: v.cuda() for k, v in host.items()}
+    step_ms = cuda_ms(lambda: tr._step(dev), 3)
+    dispatch = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._step(dev)
+        dispatch.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    dispatch_ms = sorted(dispatch)[1]
+    profile_device(lambda: tr._step(dev))  # profiler warm-up
+    prof = profile_device(lambda: tr._step(dev))
+    idle_step = 1.0 - prof["device_ms"] / step_ms
+    idle_e2e = 1.0 - prof["device_ms"] / e2e_ms
+    print(f"train step on a device-resident batch: {step_ms:.2f} ms; the "
+          f"host's dispatch of one step (median of 3) {dispatch_ms:.2f} ms; "
+          f"profiled step: device busy {prof['device_ms']:.2f} ms, "
+          f"{prof['launch_calls']} launch calls; idle share {idle_step:.3f} "
+          f"of the device-resident step, {idle_e2e:.3f} of {e2e_ms:.2f} ms "
+          f"per step end to end; by family {json.dumps(prof['families_ms'])}; "
+          f"host syncs {json.dumps(prof['syncs'])}; {card}", flush=True)
+    prof.update(step_ms=step_ms, dispatch_ms=dispatch_ms, e2e_step_ms=e2e_ms,
+                idle_share_step=idle_step, idle_share_end_to_end=idle_e2e)
+    return prof
+
+
+def check_trained(tr, ema0, last) -> None:
+    """A finite loss, finite updated parameters and an EMA that moved from
+    ``ema0``; fails otherwise."""
+    import torch
+
+    if not math.isfinite(last["total_loss"]):
+        fail(f"train loss not finite: {last}")
+    norms = torch.stack(torch._foreach_norm(tr.params))
+    if not bool(torch.isfinite(norms).all()):
+        fail("updated parameters are not finite")
+    moved = max((e - e0).abs().max().item()
+                for e, e0, p in zip(tr.ema, ema0, tr.params)
+                if p.requires_grad)
+    if not moved > 0:
+        fail("the EMA did not move")
+    print(f"updated parameters finite; EMA moved by up to {moved:.3g}",
+          flush=True)
+
+
 def train_path(card: str) -> dict:
     """KSVQE training at full width through Trainer (B=4, T=32)."""
     import torch
@@ -1346,40 +1505,8 @@ def train_path(card: str) -> dict:
     tp = Trainer(plain_cfg, device="cuda", seed=0, steps_per_epoch=100)
     aux_k = tk.train_step(batches[0])
     aux_p = tp.train_step(batches[0])
-    dl = abs(aux_k["total_loss"] - aux_p["total_loss"])
-    ltol = LOSS_TOL * max(1.0, abs(aux_p["total_loss"]))
-    rows, sq_d, sq_p = [], 0.0, 0.0
-    for (name, pk), pp in zip(tk.model.named_parameters(), tp.params):
-        if pk.grad is None:
-            continue
-        gk, gp = pk.grad.float(), pp.grad.float()
-        d, n = (gk - gp).norm().item(), gp.norm().item()
-        sq_d, sq_p = sq_d + d * d, sq_p + n * n
-        rows.append((d, n, gp.numel(), name))
-    total = math.sqrt(sq_d / max(sq_p, 1e-30))
-    rel = sorted(((d / max(n, 1e-30), d, n, k, nm) for d, n, k, nm in rows),
-                 reverse=True)
-    checked = [r for r in rel if r[4].startswith("KSVQE_backbone.layers.")]
-    worst, _, _, _, worst_name = checked[0]
-
-    def show(rs):
-        return [(float(f"{r:.3g}"), float(f"{d:.3g}"), float(f"{n:.3g}"), k,
-                 nm) for r, d, n, k, nm in rs[:6]]
-
-    print(f"train step, kernel path vs plain path: loss {aux_k} vs {aux_p} "
-          f"(|d| {dl:.4g}, tol {ltol:.4g}); {len(rows)} gradients, all "
-          f"together ||g_k - g_p|| / ||g_p|| = {total:.4g} (tol "
-          f"{TRAIN_GRAD_TOL}); the {len(checked)} Swin-stage gradients, "
-          f"worst (rel, |d|, |g_p|, numel, name): {show(checked)} (tol "
-          f"{TRAIN_GRAD_TOL}); all gradients, worst: {show(rel)}",
-          flush=True)
-    if not (math.isfinite(aux_k["total_loss"]) and dl <= ltol):
-        fail("kernel-path train loss disagrees with the plain path")
-    if not (math.isfinite(total) and total <= TRAIN_GRAD_TOL):
-        fail("kernel-path gradients disagree with the plain path")
-    if not (math.isfinite(worst) and worst <= TRAIN_GRAD_TOL):
-        fail(f"kernel-path gradient of {worst_name} disagrees with the "
-             "plain path")
+    agree = step_agreement("train step, kernel path vs plain path", tk, tp,
+                           aux_k, aux_p, "KSVQE_backbone.layers.")
     del tp
     torch.cuda.empty_cache()
 
@@ -1405,54 +1532,185 @@ def train_path(card: str) -> dict:
     if counts != want:
         fail(f"expected 10 + 10 K4 and 2 + 2 K5 launches per step and no "
              f"other kernel, got {counts}")
-    if not math.isfinite(last["total_loss"]):
-        fail(f"train loss not finite: {last}")
-    norms = torch.stack(torch._foreach_norm(tk.params))
-    if not bool(torch.isfinite(norms).all()):
-        fail("updated parameters are not finite")
-    moved = max((e - e0).abs().max().item()
-                for e, e0, p in zip(tk.ema, ema0, tk.params)
-                if p.requires_grad)
-    if not moved > 0:
-        fail("the EMA did not move")
-    print(f"updated parameters finite; EMA moved by up to {moved:.3g}",
-          flush=True)
+    check_trained(tk, ema0, last)
     del ema0
 
-    # a device-resident step, timed and profiled
-    _, host = tk._prepare(batches[1])
-    dev = {k: v.cuda() for k, v in host.items()}
-    step_ms = cuda_ms(lambda: tk._step(dev), 3)
-    dispatch = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tk._step(dev)
-        dispatch.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    dispatch_ms = sorted(dispatch)[1]
-    profile_device(lambda: tk._step(dev))  # profiler warm-up
-    prof = profile_device(lambda: tk._step(dev))
-    e2e_ms = wall / steps * 1e3
-    idle_step = 1.0 - prof["device_ms"] / step_ms
-    idle_e2e = 1.0 - prof["device_ms"] / e2e_ms
-    print(f"train step on a device-resident batch: {step_ms:.2f} ms; the "
-          f"host's dispatch of one step (median of 3) {dispatch_ms:.2f} ms; "
-          f"profiled step: device busy {prof['device_ms']:.2f} ms, "
-          f"{prof['launch_calls']} launch calls; idle share {idle_step:.3f} "
-          f"of the device-resident step, {idle_e2e:.3f} of {e2e_ms:.2f} ms "
-          f"per step end to end; by family {json.dumps(prof['families_ms'])}; "
-          f"host syncs {json.dumps(prof['syncs'])}; {card}", flush=True)
-    prof.update(step_ms=step_ms, dispatch_ms=dispatch_ms, e2e_step_ms=e2e_ms,
-                idle_share_step=idle_step, idle_share_end_to_end=idle_e2e)
+    prof = step_timings(tk, batches[1], wall / steps * 1e3, card)
     return {"steps_per_s": steps / wall, "videos_per_s": steps * TRAIN_B / wall,
             "launches": counts, "per_step": {k: v // steps for k, v in
                                              counts.items()},
-            "peak_memory_bytes": peak, "loss_kernel": aux_k,
-            "loss_plain": aux_p, "grad_rel_all": total,
-            "swin_grads": len(checked), "grads_total": len(rows),
-            "worst_swin_grad_rel": worst, "worst_swin_grad_name": worst_name,
-            "worst_grads": rel[:8], "last": last, "profile": prof}
+            "peak_memory_bytes": peak, "agreement": agree, "last": last,
+            "profile": prof}
+
+
+def make_swin_train_batch(rng) -> dict:
+    """One swin_tiny_grpb train batch in the Loader's format: B=4 technical
+    views of 32 frames (9x9x32 px fragments) and their labels."""
+    return {
+        "technical": rng.standard_normal((TRAIN_B, TRAIN_T, 288, 288, 3),
+                                         dtype=np.float32),
+        "label": rng.standard_normal(TRAIN_B).astype(np.float32),
+    }
+
+
+def _set_remat(tr, on: bool) -> None:
+    """Remat on or off in every stage of a built trainer's trunk (the flag
+    ``checkpoint`` of the backbone config sets at construction)."""
+    for stage in tr.model.swin_tiny_grpb_backbone.layers:
+        stage.use_checkpoint = on
+
+
+def _step_peak(tr, batch) -> tuple[float, int]:
+    """One train step; (peak device bytes during it, bytes resident before
+    it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), resident
+
+
+def swin_train_path(card: str) -> dict:
+    """swin_tiny_grpb training at full width through Trainer (B=4, technical
+    32x288x288, remat on as JAX's default): agreement with the plain path
+    and of remat on with remat off, timed steps through train_epoch, peak
+    memory with remat on and off, K5's launches, then train_eval (evaluate
+    on the raw and EMA weights, best-weights files)."""
+    import gc
+
+    import torch
+
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(4)
+    batches = [make_swin_train_batch(rng) for _ in range(SWIN_TRAIN_STEPS + 2)]
+    prefix = "swin_tiny_grpb_backbone.layers."
+
+    def trainer(use_pallas, remat):
+        return Trainer(swin_train_config(use_pallas, remat), device="cuda",
+                       seed=0, steps_per_epoch=100)
+
+    # 1. one kernel-path step against one plain-path step (the plain path
+    # materialises every window's scores: 1.8 GB a tensor at stage 0), at
+    # remat off, or at remat on if remat off does not fit
+    for remat in (False, True):
+        tp = None
+        try:
+            tp = trainer(False, remat)
+            aux_p = tp.train_step(batches[0])
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"plain-path step at remat {remat}: out of memory ({e}); "
+                  "comparing at remat on", flush=True)
+            del tp
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        fail("the plain-path step does not fit at remat on either")
+    t0 = time.time()
+    tk = trainer(True, remat)
+    n_params = sum(p.numel() for p in tk.params)
+    print(f"swin train model: swin_tiny_grpb + VQAHead, {n_params} "
+          f"parameters, all trainable, f32 masters, bf16 compute, remat "
+          f"{remat} for the agreement; built in {time.time() - t0:.1f} s",
+          flush=True)
+    aux_k = tk.train_step(batches[0])
+    agree = step_agreement(
+        f"swin_tiny_grpb train step at remat {remat}, kernel path vs plain "
+        "path", tk, tp, aux_k, aux_p, prefix)
+    del tp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. remat on against remat off on the kernel path
+    to = trainer(True, not remat)
+    aux_o = to.train_step(batches[0])
+    on, off = (to, tk) if remat is False else (tk, to)
+    aux_on, aux_off = (aux_o, aux_k) if remat is False else (aux_k, aux_o)
+    agree_remat = step_agreement(
+        "swin_tiny_grpb train step, kernel path, remat on vs remat off", on,
+        off, aux_on, aux_off, prefix)
+    del to, on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. timed steps through train_epoch with remat on, the counts read
+    # just after; then one step with remat off counted on its own, and
+    # each one's peak memory with this trainer alone on the card
+    _set_remat(tk, True)
+    ema0 = [e.clone() for e in tk.ema]
+    peak_on, resident = _step_peak(tk, batches[1])  # also the warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    last = tk.train_epoch(batches[2:2 + SWIN_TRAIN_STEPS])
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak_epoch = torch.cuda.max_memory_allocated()
+    steps = SWIN_TRAIN_STEPS
+    print(f"swin train path: {steps} steps in {wall:.3f} s = "
+          f"{steps / wall:.3f} steps/s = {steps * TRAIN_B / wall:.3f} "
+          f"videos/s (swin_tiny_grpb, B={TRAIN_B}, technical "
+          f"{TRAIN_T}x288x288, remat on); last losses {last}; launches "
+          f"{counts}; {card}", flush=True)
+    # remat runs each block's forward again in the backward: K5's forward
+    # launches twice a block and a step (12 in the forward, 12 in the
+    # recompute), its backward once
+    if counts != dict(NO_LAUNCHES, window_attention_train=24 * steps,
+                      window_attention_train_bwd=12 * steps):
+        fail(f"expected 24 + 12 K5 launches per step (remat on) and no "
+             f"other kernel, got {counts}")
+    check_trained(tk, ema0, last)
+    del ema0
+    _set_remat(tk, False)
+    reset_counts()
+    peak_off, _ = _step_peak(tk, batches[1])
+    counts_off = kernel_counts()
+    _set_remat(tk, True)
+    print(f"swin train path: one step at remat off: launches {counts_off}",
+          flush=True)
+    if counts_off != dict(NO_LAUNCHES, window_attention_train=12,
+                          window_attention_train_bwd=12):
+        fail(f"expected 12 + 12 K5 launches in a step at remat off, got "
+             f"{counts_off}")
+    print(f"swin train peak memory: remat on {peak_on / 2 ** 30:.3f} GiB "
+          f"(over the timed steps {peak_epoch / 2 ** 30:.3f}), remat off "
+          f"{peak_off / 2 ** 30:.3f} GiB, of which the trainer's resident "
+          f"state {resident / 2 ** 30:.3f} GiB; {card}", flush=True)
+
+    # 4. the device-resident step, timed and profiled
+    prof = step_timings(tk, batches[1], wall / steps * 1e3, card)
+
+    # 5. train_eval: one more epoch, then evaluate with the raw and the
+    # EMA weights (the eval path: K3) and write the best weights
+    val = [{"technical": b["technical"][i:i + 1], "label": b["label"][i:i + 1],
+            "video_name": [f"val_{j}_{i}"]}
+           for j, b in enumerate(batches[:2]) for i in range(TRAIN_B)]
+    tk.workdir = tempfile.mkdtemp(prefix="kvq_smoke_")
+    best, best_ema = tk.train_eval(batches[1:2], val)
+    files = sorted(os.listdir(tk.workdir))
+    shutil.rmtree(tk.workdir)
+    print(f"swin train_eval over {len(val)} videos: best (SRCC, PLCC, KRCC, "
+          f"RMSE) {best}, best EMA {best_ema}; files {files}", flush=True)
+    if not (all(math.isfinite(x) for x in best + best_ema) and files == [
+            "swin_tiny_grpb_head_val_n_finetuned.pth",
+            "swin_tiny_grpb_head_val_s_finetuned.pth"]):
+        fail("train_eval did not evaluate or did not keep the best weights")
+    return {"steps_per_s": steps / wall, "videos_per_s": steps * TRAIN_B / wall,
+            "launches": counts, "per_step": {k: v // steps for k, v in
+                                             counts.items()},
+            "launches_remat_off_step": counts_off,
+            "peak_memory_bytes_remat_on": peak_on,
+            "peak_memory_bytes_remat_on_timed": peak_epoch,
+            "peak_memory_bytes_remat_off": peak_off,
+            "resident_bytes": resident, "agreement_remat": remat,
+            "agreement": agree, "agreement_remat_on_off": agree_remat,
+            "last": last, "best": best, "best_ema": best_ema,
+            "n_params": n_params, "profile": prof}
 
 
 def main() -> int:
@@ -1481,12 +1739,16 @@ def main() -> int:
     gemm_sass_check()
 
     k1, k2 = kernel_phase(card)
-    k4f, k4b, k5f, k5b = train_kernel_phase(card)
+    k4f, k4b, k5f_ksvqe, k5b_ksvqe = train_kernel_phase(card)
+    k5f, k5b = swin_train_kernel_phase(card)
+    for agg, other in ((k5f, k5f_ksvqe), (k5b, k5b_ksvqe)):
+        agg["err"] = max(agg["err"], other["err"])
     gemm = gemm_phase(card)
     k3, k6, k7 = eval_attention_phase(card)
     run = main_path(card)
     swin = swin_path(card)
     train = train_path(card)
+    swin_train = swin_train_path(card)
 
     def record(name, source, replaces, agg, launches, lib,
                per="the calls of one forward"):
@@ -1502,6 +1764,25 @@ def main() -> int:
 
     step = "the calls of one train step (B=4, T=32)"
     tl = train["launches"]
+    stl = swin_train["launches"]
+
+    def k5_record(name, replaces, agg, counter, calls):
+        """K5 runs in both train cells: its times and bound are those of
+        the swin_tiny_grpb train step's calls at the four padded stage
+        geometries; its launches are both cells' main-path runs."""
+        by_cell = {"KSVQE train": tl[counter],
+                   "swin_tiny_grpb train": stl[counter]}
+        rec = record(
+            name, "kvq_tpu_torch/ops/csrc/train_attention.cu", replaces,
+            agg, sum(by_cell.values()), agg["lib_ms"],
+            f"ms and bound: {calls} of one swin_tiny_grpb train step (B=4, "
+            f"16x72x72 tokens padded per stage; remat repeats the forward "
+            f"calls in the backward); launches: {TRAIN_STEPS} KSVQE train "
+            f"steps (2 + 2 a step, stage 3) and {SWIN_TRAIN_STEPS} "
+            f"swin_tiny_grpb train steps at remat on (24 + 12 a step)")
+        rec["launches_by_cell"] = by_cell
+        return rec
+
     sl = swin["launches"]
     eval_src = "kvq_tpu_torch/ops/csrc/eval_attention.cu"
 
@@ -1519,14 +1800,12 @@ def main() -> int:
         record("train_swin_block_bwd", "kvq_tpu_torch/ops/csrc/swin_block.cu",
                "kvq_tpu/ops/window_attention.py:1922", k4b,
                tl["train_swin_block_bwd"], None, step),
-        record("window_attention_train",
-               "kvq_tpu_torch/ops/csrc/train_attention.cu",
-               "kvq_tpu/ops/window_attention.py:1376", k5f,
-               tl["window_attention_train"], k5f["lib_ms"], step),
-        record("window_attention_train_bwd",
-               "kvq_tpu_torch/ops/csrc/train_attention.cu",
-               "kvq_tpu/ops/window_attention.py:1416", k5b,
-               tl["window_attention_train_bwd"], k5b["lib_ms"], step),
+        k5_record("window_attention_train",
+                  "kvq_tpu/ops/window_attention.py:1376", k5f,
+                  "window_attention_train", "the 12 forward calls"),
+        k5_record("window_attention_train_bwd",
+                  "kvq_tpu/ops/window_attention.py:1416", k5b,
+                  "window_attention_train_bwd", "the 12 backward calls"),
         record("flash_window_attention_packed",
                "kvq_tpu_torch/ops/csrc/swin_block.cu",
                "kvq_tpu/ops/window_attention.py:291", k3,
@@ -1546,11 +1825,16 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "k1_rows": k1["rows"], "k2_rows": k2["rows"],
                    "k4_fwd_rows": k4f["rows"], "k4_bwd_rows": k4b["rows"],
-                   "k5_fwd_rows": k5f["rows"], "k5_bwd_rows": k5b["rows"],
+                   "k5_fwd_rows": k5f_ksvqe["rows"] + k5f["rows"],
+                   "k5_bwd_rows": k5b_ksvqe["rows"] + k5b["rows"],
+                   "k5_ksvqe_step": {k: k5f_ksvqe[k] for k in (
+                       "ms", "plain_ms", "lib_ms", "bound")},
+                   "k5_bwd_ksvqe_step": {k: k5b_ksvqe[k] for k in (
+                       "ms", "plain_ms", "lib_ms", "bound")},
                    "k3_rows": k3["rows"], "k6_rows": k6["rows"],
                    "k7_rows": k7["rows"], "gemm": gemm, "run": run,
-                   "swin": swin,
-                   "train": train, "kernels": kernels}, f,
+                   "swin": swin, "train": train, "swin_train": swin_train,
+                   "kernels": kernels}, f,
                   indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,14 +1,29 @@
-"""Full train-state checkpoints of the port (counterpart of the JAX
-trainer's save_full_state / load_full_state, kvq_tpu/train/trainer.py:
-279-332): parameters, optimizer and schedule state, EMA parameters, step
-and best metrics, in one ``torch.save`` file.  Resume works between runs of
-the port; the JAX package's msgpack checkpoints do not load here."""
+"""Checkpoints of the port.
+
+Full train state (counterpart of the JAX trainer's save_full_state /
+load_full_state, kvq_tpu/train/trainer.py:279-332): parameters, optimizer
+and schedule state, EMA parameters, step and best metrics, in one
+``torch.save`` file.  Resume works between runs of the port; the JAX
+package's msgpack checkpoints do not load here.
+
+Weights for ``load_path`` / ``test_load_path`` (counterpart of
+kvq_tpu/core/checkpoint.py:merge_params and of the reference LSVQ loader's
+table fork, kvq_tpu/core/torch_import.py:convert_swin3d):
+:func:`merge_state_dict` grafts a ``state_dict`` onto a module with the
+reference's ``load_state_dict(strict=False)`` semantics.  The port keeps
+the reference's parameter names, so a reference ``.pth`` ``state_dict``
+loads as it is.
+"""
 
 from __future__ import annotations
 
 import os
+from typing import Mapping
 
 import torch
+
+REL_TABLE = "attn.relative_position_bias_table"
+FRAG_TABLE = "attn.fragment_position_bias_table"
 
 
 def save_checkpoint(path: str, state: dict) -> None:
@@ -21,3 +36,64 @@ def save_checkpoint(path: str, state: dict) -> None:
 
 def load_checkpoint(path: str, device="cpu") -> dict:
     return torch.load(path, map_location=device, weights_only=True)
+
+
+def weights_of(loaded: Mapping) -> Mapping:
+    """The weights of a loaded file: under ``params`` (the port's and the
+    JAX package's files), under ``state_dict`` (reference ``.pth`` files),
+    or the bare dict."""
+    return loaded.get("params", loaded.get("state_dict", loaded))
+
+
+def strip_module_prefix(sd: Mapping) -> dict:
+    """Drop DDP's ``module.`` prefix (reference trainer_ddp.py:74-77)."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def fork_fragment_tables(sd: Mapping, wanted) -> dict:
+    """The reference LSVQ loader's fork: each fragment-bias table in
+    ``wanted`` that ``sd`` lacks is taken from its block's relative-bias
+    table (a Video-Swin checkpoint has no fragment tables)."""
+    out = dict(sd)
+    for name in wanted:
+        if name.endswith(FRAG_TABLE) and name not in out:
+            rel = name[:-len(FRAG_TABLE)] + REL_TABLE
+            if rel in out:
+                out[name] = out[rel]
+    return out
+
+
+@torch.no_grad()
+def merge_state_dict(model: torch.nn.Module, sd: Mapping,
+                     strict: bool = False) -> dict[str, list[str]]:
+    """Copy the entries of ``sd`` that match ``model``'s ``state_dict`` by
+    name and shape into the model (cast to each entry's dtype, on its
+    device), after stripping ``module.`` and forking the fragment tables.
+    Returns the report ``{"missing", "unexpected", "mismatched"}`` (model
+    names ``sd`` lacks; names of ``sd`` the model lacks; names whose shapes
+    differ), which ``strict`` turns into a ``ValueError``."""
+    own = model.state_dict()
+    sd = fork_fragment_tables(strip_module_prefix(sd), own)
+    unexpected, mismatched = [], []
+    for name, value in sd.items():
+        if name not in own:
+            unexpected.append(name)
+        elif tuple(own[name].shape) != tuple(value.shape):
+            mismatched.append(name)
+        else:
+            own[name].copy_(torch.as_tensor(value))
+    missing = [name for name in own if name not in sd]
+    if strict and (missing or unexpected or mismatched):
+        raise ValueError(f"strict load failed: missing={missing} "
+                         f"unexpected={unexpected} mismatched={mismatched}")
+    return {"missing": missing, "unexpected": unexpected,
+            "mismatched": mismatched}
+
+
+def load_weights(model: torch.nn.Module, path: str) -> dict[str, list[str]]:
+    """Merge the weights of the file at ``path`` into ``model`` and print
+    the report's counts (as the JAX trainer prints them)."""
+    report = merge_state_dict(model, weights_of(load_checkpoint(path)))
+    print("loaded", path, {k: len(v) for k, v in report.items()})
+    return report

@@ -5,10 +5,11 @@ and of kvq_tpu/data/pipeline.py:device_prefetch).
 Batches arrive in the JAX ``Loader``'s collated format: numpy arrays for
 the views and scalars, lists for metadata (``video_name``, ``num_clips``).
 An eval batch is padded to the eval batch size and clip-reshaped; a train
-batch (``fragment``, ``resize_video``, ``label``, ``dis_label``) is neither
-(:func:`train_host_tensors`).  Both are pre-cast on a worker thread
-(:func:`prepared_in_background`) and copied ahead on a side stream
-(:func:`prefetch_to_device`).
+batch, the fields its model keys read (:func:`train_fields`: KSVQE's
+``fragment``, ``resize_video``, ``label``, ``dis_label``; a Swin key's
+``technical`` and ``label``), is neither (:func:`train_host_tensors`).
+Both are pre-cast on a worker thread (:func:`prepared_in_background`) and
+copied ahead on a side stream (:func:`prefetch_to_device`).
 """
 
 from __future__ import annotations
@@ -102,17 +103,30 @@ def host_tensors(batch: dict, cast: torch.dtype | None,
     return out
 
 
-TRAIN_KEYS = ("fragment", "resize_video", "label", "dis_label")
+# The array fields a train step reads, by model key: KSVQE's views and its
+# distortion labels; a Swin-T-3D key's technical view.  Every key reads the
+# label.
+KSVQE_TRAIN_FIELDS = ("fragment", "resize_video", "label", "dis_label")
+SWIN_TRAIN_FIELDS = ("technical", "label")
 
 
-def train_host_tensors(batch: dict, cast: torch.dtype | None,
+def train_fields(keys) -> tuple[str, ...]:
+    """The batch fields a train step of the model keys ``keys`` reads."""
+    fields: list[str] = []
+    for key in keys:
+        own = KSVQE_TRAIN_FIELDS if key == "KSVQE" else SWIN_TRAIN_FIELDS
+        fields += [f for f in own if f not in fields]
+    return tuple(fields)
+
+
+def train_host_tensors(batch: dict, fields, cast: torch.dtype | None,
                        pin: bool) -> dict[str, torch.Tensor]:
-    """A train batch's array fields as host tensors (views pre-cast to
+    """A train batch's ``fields`` as host tensors (views pre-cast to
     ``cast``, pinned when ``pin``): no padding and no clip reshape."""
-    missing = [k for k in TRAIN_KEYS if k not in batch]
+    missing = [k for k in fields if k not in batch]
     if missing:
         raise KeyError(f"train batch lacks {missing}")
-    return host_tensors({k: batch[k] for k in TRAIN_KEYS}, cast, pin)
+    return host_tensors({k: batch[k] for k in fields}, cast, pin)
 
 
 def prepared_in_background(prepare: Callable, items: Iterable,

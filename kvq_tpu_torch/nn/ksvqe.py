@@ -43,8 +43,11 @@ from .swin import SwinConfig, make_stages
 
 @dataclasses.dataclass(frozen=True)
 class KSVQEConfig:
-    """kvq_tpu's KSVQEConfig without remat (``use_checkpoint``) and the
-    CONTRIQUE BatchNorm fold, which change no result."""
+    """kvq_tpu's KSVQEConfig without the CONTRIQUE BatchNorm fold, which
+    changes no result.  ``use_checkpoint`` (remat of the Swin blocks, the
+    backbone config's ``checkpoint``, on unless it says false as
+    config/Kwai_KSVQE*.yml do) changes no result either, only what a
+    training forward keeps for its backward."""
 
     num_samples: int = 1
     sample_type: str = "topkpertubation"
@@ -63,6 +66,7 @@ class KSVQEConfig:
     window_size: tuple[int, int, int] = (8, 7, 7)
     drop_path_rate: float = 0.1
     frag_biases: tuple[bool, ...] = (True, True, True, False)
+    use_checkpoint: bool = True
     use_pallas: bool = False
     s2d_input: bool = False
     force_sem_gather: bool = False
@@ -85,6 +89,7 @@ def ksvqe_config(bb: dict | None) -> KSVQEConfig:
         tuning_stage=int(bb.get("tuning_stage", 1)),
         a1=float(bb.get("a1", 1.0)),
         a2=float(bb.get("a2", 0.0)),
+        use_checkpoint=bool(bb.get("checkpoint", True)),
         use_pallas=bool(bb.get("use_pallas", False)),
         s2d_input=bool(bb.get("s2d_input", False)),
         drop_path_rate=float(bb.get("drop_path_rate", 0.1)),
@@ -121,7 +126,8 @@ class KSVQE(nn.Module):
             patch_size=cfg.patch_size, embed_dim=cfg.embed_dim,
             depths=cfg.depths, num_heads=cfg.num_heads,
             window_size=cfg.window_size, drop_path_rate=cfg.drop_path_rate,
-            frag_biases=cfg.frag_biases, use_pallas=cfg.use_pallas))
+            frag_biases=cfg.frag_biases, use_pallas=cfg.use_pallas,
+            use_checkpoint=cfg.use_checkpoint))
         n_stages = len(cfg.depths)
         self.num_features = int(cfg.embed_dim * 2 ** (n_stages - 1))
         self.norm = LayerNorm(self.num_features)

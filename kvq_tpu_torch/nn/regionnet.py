@@ -5,8 +5,10 @@ Per keyframe, the CLIP cls-attention map is nearest-resized to the fragment
 anchor grid with torch's floor rule, every k_side x k_side anchor window is
 a candidate region scored by its mean.  Eval picks the argmax (ties go to
 the lowest index, as ``jnp.argmax`` breaks them) and gathers the region;
-training takes the perturbed top-1 soft indicator (sample type
-``topkpertubation``, its noise drawn from the caller's generator) and the
+training takes the training indicator of the sample type (perturbed top-1
+for ``topkpertubation``, straight-through Gumbel softmax for ``gumbel``, a
+categorical draw on the log-scores for ``multinomial``, a uniform index for
+``random``), its random draw taken from the caller's generator, and the
 region is the indicator-weighted sum of the candidate slices.  Each frame
 takes its keyframe group's choice.
 """
@@ -18,7 +20,15 @@ import math
 import torch
 
 from ..core.device import index_tensor
-from ..ops.topk import min_max_norm, perturbed_topk
+from ..ops.topk import (
+    categorical_indicator,
+    gumbel_topk_indicator,
+    index_indicator,
+    min_max_norm,
+    perturbed_topk,
+)
+
+SAMPLE_TYPES = ("topkpertubation", "gumbel", "multinomial", "random")
 
 
 def region_scores(cls_attn, grid_hw, k_side: int, stride: int = 1):
@@ -95,6 +105,8 @@ class RegionSelector:
     def __init__(self, k: int = 49, anchor_size: int = 32, stride: int = 1,
                  num_samples: int = 1, sample_type: str = "topkpertubation",
                  sigma: float = 0.5):
+        if sample_type not in SAMPLE_TYPES:
+            raise ValueError(f"unknown QRS sample type {sample_type!r}")
         self.k_side = int(math.isqrt(k))
         self.anchor = anchor_size
         self.stride = stride
@@ -112,17 +124,40 @@ class RegionSelector:
         gid = index_tensor(tuple(group_id), cls_attn.device)
         if not train:
             return scores.argmax(dim=-1).reshape(B, n_key)[:, gid]
-        if self.sample_type != "topkpertubation":
-            raise NotImplementedError(
-                f"QRS sample type {self.sample_type!r} is not ported yet")
-        if gen is None:
-            raise ValueError("training QRS draws its noise from a "
-                             "torch.Generator: pass gen")
-        noise = torch.randn((B * n_key, self.num_samples, scores.shape[-1]),
-                            generator=gen, device=scores.device,
-                            dtype=scores.dtype)
-        ind = perturbed_topk(scores, noise, 1, self.sigma)
+        ind = self.indicator(scores, self.draw(scores, gen))
         return ind.reshape(B, n_key, -1)[:, gid]
+
+    def draw(self, scores, gen):
+        """The training draw of the sample type, from ``gen``: standard
+        normal noise (b, num_samples, d) for perturbed top-k, uniform
+        (b, d) for Gumbel softmax, standard Gumbel (b, d) for the
+        categorical draw, indices (b,) for ``random``."""
+        if gen is None:
+            raise ValueError("training QRS draws from a torch.Generator: "
+                             "pass gen")
+        b, d = scores.shape
+        kw = dict(generator=gen, device=scores.device)
+        if self.sample_type == "topkpertubation":
+            return torch.randn((b, self.num_samples, d), dtype=scores.dtype,
+                               **kw)
+        if self.sample_type == "gumbel":
+            return torch.rand((b, d), dtype=scores.dtype, **kw)
+        if self.sample_type == "multinomial":
+            u = torch.rand((b, d), dtype=scores.dtype, **kw)
+            u = u.clamp_min(torch.finfo(scores.dtype).tiny)
+            return -torch.log(-torch.log(u))
+        return torch.randint(0, d, (b,), **kw)
+
+    def indicator(self, scores, draw):
+        """(b, 1, d) training indicator of the sample type from its
+        draw."""
+        if self.sample_type == "topkpertubation":
+            return perturbed_topk(scores, draw, 1, self.sigma)
+        if self.sample_type == "gumbel":
+            return gumbel_topk_indicator(scores, draw)
+        if self.sample_type == "multinomial":
+            return categorical_indicator(scores, draw)
+        return index_indicator(draw, scores.shape[-1], scores.dtype)
 
     def __call__(self, fragment, cls_attn, group_id, train: bool = False,
                  gen=None):

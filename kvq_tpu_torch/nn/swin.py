@@ -21,7 +21,9 @@ pad-free blocks that pass both of the reference's gates take K4
 other block runs its plain LayerNorm/MLP around K5
 (:func:`~kvq_tpu_torch.ops.train_attention.window_attention_train`).  Each
 wrapper launches its CUDA kernels for CUDA tensors and runs its plain
-version for CPU tensors.  The bias tables get their gradients through the
+version for CPU tensors.  With remat (``use_checkpoint``, JAX's default)
+every training block runs under ``torch.utils.checkpoint`` on either
+route (:class:`BasicLayer`).  The bias tables get their gradients through the
 gather of :func:`expand_bias_planes`.
 
 :class:`SwinTransformer3D` is the whole Video-Swin trunk of the model keys
@@ -37,6 +39,8 @@ import functools
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.train_attention import train_swin_block, window_attention_train
 from ..ops.window_attention import (
@@ -241,16 +245,25 @@ class SwinBlock3D(nn.Module):
             out = torch.roll(out, shifts=tuple(shift), dims=(1, 2, 3))
         return out
 
-    def forward(self, x, gen=None):
+    def drop_path_multipliers(self, batch: int, gen, device):
+        """The block's two DropPath multiplier sets (attention branch
+        first; each None when nothing drops), drawn from ``gen``."""
+        return (self.drop_path.multipliers(batch, gen, device),
+                self.drop_path.multipliers(batch, gen, device))
+
+    def forward(self, x, gen=None, dp=None):
         """``gen``: the torch.Generator of a training forward's DropPath
-        draws (two per block, attention branch first, on every route)."""
+        draws (two per block, attention branch first, on every route); or
+        ``dp``, the two multiplier sets drawn already
+        (:meth:`drop_path_multipliers`), as a rematerialised block takes
+        them."""
         B, D, H, W, C = x.shape
         cfg_shift = (tuple(w // 2 for w in self.window_size) if self.shift
                      else (0, 0, 0))
         window, shift = get_window_size((D, H, W), self.window_size, cfg_shift)
         no_pad = all(d % w == 0 for d, w in zip((D, H, W), window))
-        dp1 = self.drop_path.multipliers(B, gen, x.device)
-        dp2 = self.drop_path.multipliers(B, gen, x.device)
+        dp1, dp2 = (self.drop_path_multipliers(B, gen, x.device) if dp is None
+                    else dp)
         if self.use_pallas and no_pad:
             # the gate is decided on the unpadded dims, as the reference's
             probe = self._geometry(B, (D, H, W), window, shift, C)
@@ -290,11 +303,22 @@ class SwinBlock3D(nn.Module):
 
 class BasicLayer(nn.Module):
     """One stage: ``depth`` blocks (alternating shift) + optional
-    PatchMerging (reference swin_backbone.py:585-667)."""
+    PatchMerging (reference swin_backbone.py:585-667).
+
+    With ``use_checkpoint`` (remat, JAX's ``nn.remat`` per block) a
+    training forward keeps no activation inside a block: the block runs
+    under ``torch.utils.checkpoint`` and is recomputed in the backward.
+    Its DropPath multipliers are drawn before the checkpointed region, in
+    the order of a forward without remat, and passed in, so the recompute
+    draws nothing; its parameters are passed in as well, so the recompute
+    runs on the tensors the forward ran on (the trainer's compute-dtype
+    copies, which ``functional_call`` puts in place only during the
+    forward)."""
 
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio=4.0,
                  qkv_bias=True, drop_paths=(), downsample=True,
-                 frag_bias=False, fragments_hw=7, use_pallas=False):
+                 frag_bias=False, fragments_hw=7, use_pallas=False,
+                 use_checkpoint=False):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinBlock3D(dim, num_heads, window_size, shift=i % 2 == 1,
@@ -305,22 +329,39 @@ class BasicLayer(nn.Module):
             for i in range(depth)
         ])
         self.downsample = PatchMerging(dim) if downsample else None
+        self.use_checkpoint = use_checkpoint
 
     def forward(self, x, gen=None):
+        remat = (self.use_checkpoint and self.training
+                 and torch.is_grad_enabled())
         for blk in self.blocks:
-            x = blk(x, gen)
+            dp = blk.drop_path_multipliers(x.shape[0], gen, x.device)
+            x = _rematerialised(blk, x, dp) if remat else blk(x, dp=dp)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
 
 
+def _rematerialised(blk, x, dp):
+    """``blk(x, dp=dp)`` under non-reentrant ``torch.utils.checkpoint``,
+    with the block's parameters as inputs of the checkpointed function."""
+    names, tensors = zip(*blk.named_parameters())
+
+    def run(x, *tensors):
+        return functional_call(blk, dict(zip(names, tensors)), (x,),
+                               {"dp": dp})
+
+    return checkpoint(run, x, *tensors, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 @dataclasses.dataclass(frozen=True)
 class SwinConfig:
-    """kvq_tpu's SwinConfig without remat (``use_checkpoint``), which
-    changes no result, and without the options that no preset and no
+    """kvq_tpu's SwinConfig without the options that no preset and no
     ``backbone`` override sets (``drop_rate``, ``attn_drop_rate``,
     ``jump_attention``, ``input_key``): the trunk reads the technical
-    view."""
+    view.  ``use_checkpoint`` (remat, on by default as in JAX) changes no
+    result, only what a training forward keeps for its backward."""
 
     patch_size: tuple[int, int, int] = (2, 4, 4)
     embed_dim: int = 96
@@ -332,6 +373,7 @@ class SwinConfig:
     drop_path_rate: float = 0.1
     frag_biases: tuple[bool, ...] = (True, True, True, False)
     fragments_hw: int = 7
+    use_checkpoint: bool = True
     use_pallas: bool = False
 
 
@@ -348,13 +390,14 @@ SWIN_KEYS = tuple(_PRESETS)  # the model keys whose backbone is a Swin trunk
 
 
 def swin_config(key: str, backbone_cfg: dict | None) -> SwinConfig:
-    """A model key's preset with the ``backbone`` overrides ``window_size``
-    and ``use_pallas``; ``checkpoint`` (remat) is accepted and changes no
-    result."""
+    """A model key's preset with the ``backbone`` overrides
+    ``window_size``, ``checkpoint`` (remat) and ``use_pallas``."""
     kw = dict(_PRESETS[key])
     bb = backbone_cfg or {}
     if "window_size" in bb:
         kw["window_size"] = tuple(bb["window_size"])
+    if "checkpoint" in bb:
+        kw["use_checkpoint"] = bool(bb["checkpoint"])
     if "use_pallas" in bb:
         kw["use_pallas"] = bool(bb["use_pallas"])
     return SwinConfig(**kw)
@@ -379,6 +422,7 @@ def make_stages(cfg: SwinConfig) -> nn.ModuleList:
             frag_bias=bool(cfg.frag_biases[i]),
             fragments_hw=cfg.fragments_hw,
             use_pallas=cfg.use_pallas,
+            use_checkpoint=cfg.use_checkpoint,
         ))
     return nn.ModuleList(stages)
 

@@ -10,7 +10,18 @@
             "bnkd,bnd->bkd" / nS / sigma, then "bkd,bkd->bd"); zero when
             sigma <= 1e-20.
 
-The noise is an input: the caller draws it from an explicit
+The other training indicators of QRS (kvq_tpu/ops/topk.py:64-72,
+kvq_tpu/nn/regionnet.py:185-206), each (b, 1, d):
+
+  - :func:`gumbel_topk_indicator`: straight-through Gumbel softmax, k=1,
+    tau=1 (one-hot forward, the softmax's gradient backward);
+  - :func:`categorical_indicator`: a categorical draw on
+    ``log(scores + 1e-12)`` by the Gumbel-max rule, as
+    ``jax.random.categorical`` draws it;
+  - :func:`index_indicator`: the one-hot of given indices (sample type
+    ``random``).
+
+The random draw is an input of each: the caller draws it from an explicit
 ``torch.Generator`` (the JAX package from a PRNG key), so a test can hand
 both the same numbers.
 """
@@ -59,3 +70,26 @@ def perturbed_topk(x, noise, k: int, sigma: float):
     """x (b, d) scores, noise (b, num_samples, d) standard normal -> the
     (b, k, d) soft top-k indicator, differentiable in x."""
     return PerturbedTopK.apply(x, noise, k, float(sigma))
+
+
+def gumbel_topk_indicator(x, uniform, tau: float = 1.0):
+    """x (b, d) scores, uniform (b, d) draws in [0, 1) -> the (b, 1, d)
+    straight-through Gumbel-softmax indicator (reference gumbel_softmax,
+    patchnet.py:366-390): the hard one-hot forward, the gradient of
+    softmax((x + g) / tau) backward."""
+    g = -torch.log(-torch.log(uniform + 1e-20) + 1e-20)
+    y_soft = ((x + g) / tau).softmax(dim=-1)
+    y_hard = F.one_hot(y_soft.argmax(dim=-1), x.shape[-1]).to(x.dtype)
+    return (y_hard - y_soft.detach() + y_soft)[:, None, :]
+
+
+def categorical_indicator(x, gumbel):
+    """x (b, d) scores in [0, 1], gumbel (b, d) standard Gumbel draws ->
+    the (b, 1, d) one-hot of a draw with P(i) proportional to x_i."""
+    idx = (gumbel + torch.log(x + 1e-12)).argmax(dim=-1)
+    return index_indicator(idx, x.shape[-1], x.dtype)
+
+
+def index_indicator(idx, d: int, dtype):
+    """idx (b,) -> the (b, 1, d) one-hot indicator."""
+    return F.one_hot(idx.long(), d).to(dtype)[:, None, :]

@@ -1,9 +1,14 @@
 """The eval half of the JAX ``Trainer`` (kvq_tpu/train/trainer.py:465-547,
 603-627, 674-719), single process.
 
-``evaluate(batches)`` returns :class:`~kvq_tpu_torch.core.metrics.VQAMetrics`
-of the per-video scores against the labels; ``inference_test(batches,
-output_path)`` writes ``video_name,score`` lines.  Batch N+1's padding,
+``Evaluator(config)`` builds the eval network (seeded random weights,
+cast to the compute dtype) and merges the weights of ``test_load_path``,
+else ``load_path``, when the config names one, as kvq_tpu/cli/test.py:32-34
+resolves them (core/checkpoint.py:merge_state_dict); a model passed in is
+used as it is.  ``evaluate(batches)`` returns
+:class:`~kvq_tpu_torch.core.metrics.VQAMetrics` of the per-video scores
+against the labels; ``inference_test(batches, output_path)`` writes
+``video_name,score`` lines.  Batch N+1's padding,
 bf16 pre-cast (on a worker thread) and host-to-device copy are in flight
 while batch N is scored, and batch N's scores are read back only after
 batch N+1 has been dispatched.
@@ -16,6 +21,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..core.checkpoint import load_weights
 from ..core.config import key_list, normalize_config
 from ..core.device import resolve_device
 from ..core.metrics import VQAMetrics, vqa_metrics
@@ -34,8 +40,13 @@ class Evaluator:
     def __init__(self, config: dict, model=None, device="cuda", seed: int = 0):
         self.config = normalize_config(config)
         self.device = resolve_device(device)
-        self.model = (model if model is not None
-                      else build_model(self.config, self.device, seed))
+        if model is None:
+            model = build_model(self.config, self.device, seed)
+            path = (self.config.get("test_load_path")
+                    or self.config.get("load_path"))
+            if path:
+                load_weights(model, path)
+        self.model = model
         self.key_list = key_list(self.config)
         self.cast = view_dtype(self.config)
         self.eval_batch_size = int(self.config.get("eval_batch_size") or 1)

@@ -1,48 +1,62 @@
-"""The train half of the JAX ``Trainer`` (kvq_tpu/train/trainer.py:115-463),
-on one device.
+"""The one-device Trainer (counterpart of kvq_tpu/train/trainer.py:115-670).
 
-``Trainer(config, device="cuda", seed=0)`` builds the network with float32
-master parameters (:func:`~kvq_tpu_torch.models.vqa_network.build_train_model`),
-freezes CLIP (except its adapters) and CONTRIQUE of KSVQE, and sets up
-AdamW with the warmup + cosine schedule and the EMA.  It trains the KSVQE
-model key only and raises ``NotImplementedError`` for any other.
-``train_step(batch)``
-runs one step: the forward in the compute dtype with the train routing
-(K4 and K5 on the Swin blocks, the plain CDM), ``total_loss``, the
-backward, the AdamW and schedule steps, the EMA update and ``step + 1``;
-it returns the loss terms as floats, the only point where the host waits
-for the card.  ``train_epoch(batches)`` overlaps the next batch's pre-cast
-(worker thread) and host-to-device copy (side stream) with the current
-step and reads the losses once, after the last step.
+``Trainer(config, device="cuda", seed=0)`` builds the network of any
+ported model key with float32 master parameters
+(:func:`~kvq_tpu_torch.models.vqa_network.build_train_model`), merges the
+weights of ``load_path`` when the config names one (the reference's
+``load_state_dict(strict=False)``, core/checkpoint.py), freezes CLIP
+(except its adapters) and CONTRIQUE when the model is KSVQE, and sets up
+AdamW with the warmup + cosine schedule and the EMA.  ``train_step(batch)``
+runs one step: the forward in the compute dtype with the train routing (K4
+on pad-free Swin blocks, K5 around the plain LayerNorm/MLP on padded ones,
+the plain CDM), ``total_loss`` (KSVQE adds its contrastive distortion
+loss), the backward, the AdamW and schedule steps, the EMA update and
+``step + 1``; it returns the loss terms as floats, the only point where
+the host waits for the card.  ``train_epoch(batches)`` overlaps the next
+batch's pre-cast (worker thread) and host-to-device copy (side stream)
+with the current step and reads the losses once, after the last step.
+
+``evaluate(batches, use_ema)`` scores the raw or the EMA weights through
+the :class:`~kvq_tpu_torch.train.evaluator.Evaluator`; ``train_eval``
+trains an epoch, evaluates both and keeps the best metrics and weights as
+the reference does (best-(SRCC+PLCC) files ``{name}_head_{test_set}_{n|s}
+_finetuned.pth`` under ``workdir``).
 
 All randomness comes from one ``torch.Generator`` per trainer (seeded with
-``seed + 1``; the weights use ``seed``): the QRS noise, the DropPath masks
-and the head's dropout, drawn in that order on every route, so one seed
-gives the kernel path and the plain path the same draws.  ``save`` /
-``load`` keep the full state (core/checkpoint.py), generator included.
+``seed + 1``; the weights use ``seed``): the QRS draw, the DropPath masks
+and the head's dropout, drawn in that order on every route, with or
+without remat, so one seed gives the kernel path and the plain path the
+same draws.  ``save`` / ``load`` keep the full state (core/checkpoint.py),
+generator included.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable
 
 import torch
 from torch.func import functional_call
 
-from ..core.checkpoint import load_checkpoint, save_checkpoint
+from ..core.checkpoint import load_checkpoint, load_weights, save_checkpoint
 from ..core.config import model_keys, normalize_config
 from ..core.device import resolve_device
+from ..core.metrics import VQAMetrics
 from ..data.pipeline import (
     prefetch_to_device,
     prepared_in_background,
+    train_fields,
     train_host_tensors,
     view_dtype,
 )
 from ..models.vqa_network import (
+    VQANetwork,
     build_train_model,
+    cast_model,
     compute_dtype,
     compute_tensors,
 )
+from .evaluator import Evaluator
 from .losses import total_loss
 from .optim import KSVQE_FROZEN_PATTERNS, build_optimizer, ema_update, freeze
 
@@ -51,18 +65,22 @@ PIPELINE_DEPTH = 2  # train batches prepared and copied ahead of the step
 
 class Trainer:
     def __init__(self, config: dict, device="cuda", seed: int = 0,
-                 steps_per_epoch: int = 1):
+                 steps_per_epoch: int = 1, workdir: str = "./work",
+                 test_set: str = "val"):
         self.config = normalize_config(config)
         cfg = self.config
-        for key in model_keys(cfg):
-            # the step unpacks KSVQE's (scores, distortion logits) and its
-            # batch needs KSVQE's views; other keys would fail at the step
-            if key != "KSVQE":
-                raise NotImplementedError(
-                    f"Trainer trains the KSVQE model key only, not {key!r}")
+        self.workdir = workdir
+        self.test_set = test_set
+        keys = model_keys(cfg)
+        # only KSVQE returns (scores, contrastive loss) and has frozen tools
+        self.is_ksvqe = "KSVQE" in keys
+        self.fields = train_fields(keys)
         self.device = resolve_device(device)
         self.model = build_train_model(cfg, self.device, seed)
-        freeze(self.model, KSVQE_FROZEN_PATTERNS)
+        if cfg.get("load_path"):
+            load_weights(self.model, cfg["load_path"])
+        if self.is_ksvqe:
+            freeze(self.model, KSVQE_FROZEN_PATTERNS)
         self.dtype = compute_dtype(cfg)
         self.cast = view_dtype(cfg)
         opt = cfg.get("optimizer") or {}
@@ -89,6 +107,7 @@ class Trainer:
         self.best_ema = (-1.0, -1.0, -1.0, 1999.0)
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._frozen = None
+        self._evaluator = None
 
     # ------------------------------------------------------------------ steps
     def _compute_tensors(self) -> dict:
@@ -109,7 +128,7 @@ class Trainer:
         self.model.train()
         out = functional_call(self.model, self._compute_tensors(), (dev,),
                               {"gen": self.gen})
-        scores, dis = out
+        scores, dis = out if self.is_ksvqe else (out, None)
         loss, aux = total_loss(scores, dev["label"], dis, self.contra_w,
                                self.rank_w)
         self.optimizer.zero_grad(set_to_none=True)
@@ -122,7 +141,7 @@ class Trainer:
         return {k: v.detach() for k, v in aux.items()}
 
     def _prepare(self, batch: dict):
-        return None, train_host_tensors(batch, self.cast,
+        return None, train_host_tensors(batch, self.fields, self.cast,
                                         pin=self.device.type == "cuda")
 
     def train_step(self, batch: dict) -> dict[str, float]:
@@ -141,6 +160,60 @@ class Trainer:
         ):
             last = self._step(dev)
         return {k: float(v) for k, v in last.items()}
+
+    # ------------------------------------------------------------ evaluation
+    def weights(self, use_ema: bool = False) -> dict:
+        """The model's ``state_dict`` (f32 masters and buffers), with the
+        EMA parameters in place of the raw ones when ``use_ema``."""
+        sd = self.model.state_dict()
+        if use_ema and self.use_ema:
+            names = [n for n, _ in self.model.named_parameters()]
+            sd.update(zip(names, self.ema))
+        return sd
+
+    def evaluate(self, batches: Iterable[dict],
+                 use_ema: bool = False) -> VQAMetrics:
+        """Score ``batches`` (the Loader's eval format) with the raw or the
+        EMA weights, cast to the compute dtype, through the Evaluator."""
+        if self._evaluator is None:
+            with torch.device(self.device):
+                net = VQANetwork(self.config)
+            self._evaluator = Evaluator(
+                self.config, model=cast_model(net, self.dtype).eval(),
+                device=self.device)
+        self._evaluator.model.load_state_dict(self.weights(use_ema))
+        return self._evaluator.evaluate(batches)
+
+    def train_eval(self, train_batches: Iterable[dict],
+                   val_batches) -> tuple[tuple, tuple]:
+        """One epoch over ``train_batches``, then ``val_batches`` (a
+        sequence: it is scored twice) with the raw and, with the EMA on,
+        the EMA weights; returns ``(best, best_ema)``.  The JAX trainer's
+        ``train_eval_all_epoches``."""
+        self.train_epoch(train_batches)
+        self.best = self._eval_and_maybe_save(False, self.best, "n",
+                                              val_batches)
+        if self.use_ema:
+            self.best_ema = self._eval_and_maybe_save(True, self.best_ema,
+                                                      "s", val_batches)
+        return self.best, self.best_ema
+
+    def _eval_and_maybe_save(self, use_ema: bool, best: tuple, suffix: str,
+                             val_batches) -> tuple:
+        """The reference's rule: write the weights when SRCC + PLCC beats
+        the best so far (and ``save_model``), with the best so far as its
+        validation results; each metric's best is its max (RMSE: min)."""
+        m = self.evaluate(val_batches, use_ema=use_ema)
+        best_s, best_p, best_k, best_r = best
+        if m.srcc + m.plcc > best_s + best_p and self.config.get(
+                "save_model", True):
+            name = f"{self.config['name']}_head_{self.test_set}"
+            save_checkpoint(
+                os.path.join(self.workdir, f"{name}_{suffix}_finetuned.pth"),
+                {"params": self.weights(use_ema),
+                 "validation_results": list(best)})
+        return (max(best_s, m.srcc), max(best_p, m.plcc),
+                max(best_k, m.krcc), min(best_r, m.rmse))
 
     # -------------------------------------------------------------- state
     def save(self, path: str) -> None:

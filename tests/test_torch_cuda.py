@@ -199,7 +199,23 @@ def _window_scores_plain(q, k, rel, frag, geo, scale):
 ])
 def test_window_attention_train_kernels_match_plain(cuda, dims, window, shift,
                                                     use_frag, batch):
-    h, hd = 3, 32
+    _check_window_attention_train(cuda, dims, window, shift, use_frag, batch,
+                                  h=3)
+
+
+@pytest.mark.cuda
+def test_window_attention_train_kernels_match_plain_padded_stage1(cuda):
+    """K5 at swin_tiny_grpb's training geometry of stage 1 on the KVQ
+    technical view (B=4, 16x36x36 tokens padded to 16x42x42, 6 heads),
+    shifted and fragment-biased: 288 windows of the seam mask and the gated
+    bias whose plane gradients the bias pass sums."""
+    _check_window_attention_train(cuda, (16, 42, 42), (8, 7, 7), (4, 3, 3),
+                                  True, 4, h=6)
+
+
+def _check_window_attention_train(cuda, dims, window, shift, use_frag,
+                                  batch, h):
+    hd = 32
     geo = TWA.WindowGeometry(batch=batch, dims=dims, window=window,
                              shift=shift, fragments=(1, 7, 7), num_heads=h,
                              head_dim=hd, use_frag=use_frag)

@@ -409,32 +409,16 @@ def test_trainer_steps_save_load_resume(tmp_path):
         assert torch.equal(e, f)
 
 
-@pytest.mark.parametrize("key", ["swin_tiny_grpb", "swin_tiny"])
-def test_trainer_refuses_keys_it_cannot_train(key):
-    """Only KSVQE trains: a Swin key is refused at construction, naming
-    the key, before any weight is built; a KSVQE config still builds."""
-    from kvq_tpu_torch.train.trainer import Trainer
-
-    cfg = {"name": "tiny", "model": {
-        "type": key, "compute_dtype": "float32",
-        "args": {key: {"backbone": {"window_size": (2, 4, 4)},
-                       "head": {"in_channels": 768, "hidden_channels": 8}}},
-    }}
-    with pytest.raises(NotImplementedError, match=key):
-        Trainer(cfg, device="cpu", seed=0)
-    tr = Trainer(tiny_config(use_pallas=True, s2d_input=True), device="cpu",
-                 seed=0)
-    assert tr.model.key_names == ["KSVQE"]
-
-
 def test_train_batch_prep():
-    from kvq_tpu_torch.data.pipeline import train_host_tensors
+    from kvq_tpu_torch.data.pipeline import train_fields, train_host_tensors
 
+    fields = train_fields(["KSVQE"])
     b = dict(_trainer_batch(0), video_name=["a"] * 4)
-    host = train_host_tensors(b, torch.bfloat16, pin=False)
+    host = train_host_tensors(b, fields, torch.bfloat16, pin=False)
     assert set(host) == {"fragment", "resize_video", "label", "dis_label"}
     assert host["fragment"].dtype == torch.bfloat16
     assert host["fragment"].shape == b["fragment"].shape  # no clip reshape
     assert host["label"].dtype == torch.float32
     with pytest.raises(KeyError):
-        train_host_tensors({"fragment": b["fragment"]}, None, pin=False)
+        train_host_tensors({"fragment": b["fragment"]}, fields, None,
+                           pin=False)
