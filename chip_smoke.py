@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Runs the port's main paths — KSVQE eval scoring, Swin-T-3D eval scoring
-(the swin_tiny_grpb model key), KSVQE training and swin_tiny_grpb training
-— on one NVIDIA GPU.
+(the swin_tiny_grpb model key), KSVQE training and swin_tiny_grpb training,
+then KSVQE scoring and training through the CLIs — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@
 3. holds K1 (fused_swin_block) against its plain version at each shipped
    stage geometry and at swin_tiny_grpb_m's stages 0-1 ((4, 4, 4) windows),
    unshifted and shifted, and K2 (flash_attention_nobias_cl) at the nine
-   CDM shapes, on seeded bf16 inputs;
+   CDM shapes (the semantic cross-attention's keys are CLIP's 7x7 patch
+   tokens of the 112 px resize view), on seeded bf16 inputs;
 4. holds K4 (train_swin_block, forward and backward) at the train
    geometries of stages 0-2 and K5 (window_attention_train, forward and
    backward) at stage 3's, unshifted and shifted, with DropPath
@@ -28,7 +29,8 @@
    (flash_attention_nobias) at the nine CDM shapes in head-major layout,
    against their plain versions and scaled_dot_product_attention;
 6. builds KSVQE + VQAHead at full width from seeded random weights in bf16,
-   scores a few batches of the shipped eval shapes through the evaluator
+   scores a few batches of the shipped eval shapes (the 9x9x32 px mosaic of
+   96 frames, the 112 px resize view) through the evaluator
    (``inference_test``), checks finite scores and 12 K1 + 9 K2 launches per
    forward, and compares the kernel path's score with the plain path's;
 7. does the same for swin_tiny_grpb + VQAHead on the technical view of the
@@ -36,26 +38,44 @@
    and no other kernel; then one forward of swin_tiny_grpb_m (4 K1 and 8 K3
    launches at N=64) against its plain path;
 8. trains KSVQE at full width through ``Trainer`` (f32 masters, bf16
-   compute) on seeded batches of the shipped train shapes (B=4, T=32):
-   one kernel-path step against one plain-path step from the same weights
-   and seed (loss and every gradient), then timed steps that must launch
-   K4 10 + 10 and K5 2 + 2 times each, with a finite loss, finite updated
-   parameters and a moving EMA;
+   compute) on seeded batches of the shipped train shapes (B=4, T=32, 112
+   px resize views): one kernel-path step against one plain-path step from
+   the same weights and seed (loss and every gradient), then timed steps
+   that must launch K4 10 + 10 and K5 2 + 2 times each, with a finite loss,
+   finite updated parameters and a moving EMA;
 9. trains swin_tiny_grpb the same way on the technical view (B=4,
    32x288x288, remat on): a kernel-path step against a plain-path step,
    remat on against remat off, timed steps that must launch K5 24 + 12
    times a step (the recompute repeats the forward), a step at remat off
    (12 + 12), peak memory with remat on and off, then ``train_eval``
    (evaluate on the raw and EMA weights, the best-weights files);
-10. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
+10. scores 16 synthetic 1280x720 videos of 300 frames through
+   ``kvq_tpu_torch.cli.test.run`` with config/Kwai_KSVQE_test.yml's val
+   view (the port's KVQDataset, Loader and Evaluator): 16 finite scores in
+   output.txt, 12 K1 + 9 K2 launches per forward, each score within
+   SCORE_TOL of the Evaluator on the same Loader's batches, then
+   ``cli.metric_score`` on the prediction CSV against a truth CSV and rank
+   pairs; prints the CLI's videos/s, the Loader's alone, the host's ms per
+   video by stage and the card's idle share over the run;
+11. trains KSVQE through ``kvq_tpu_torch.cli.train.run`` with
+   config/Kwai_KSVQE.yml's views on 8 synthetic train videos (B=4: 2 steps
+   an epoch) and 4 val videos: one epoch, then one more resumed from the
+   ``_last_state.pt`` it wrote; step 4 at the end, the schedule continued,
+   the best-weights files, K4 10 + 10 and K5 2 + 2 launches a step, finite
+   losses;
+12. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
    records, and as its last line ``{"ok": true, "device": {...}}``.
 
-Exits non-zero without a result when CUDA is absent, when the package is not
-beside this script, or when any phase fails.  Imports nothing of JAX.
+The videos of steps 10 and 11 are synthetic (the config's
+``source_factory``), chosen by the config: the time of their frames is
+not a decode time.  Exits non-zero without a result when CUDA is absent,
+when the package is not beside this script, or when any phase fails.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -64,6 +84,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -100,6 +121,10 @@ TRAIN_GRAD_TOL = 0.1
 # Shipped geometry (config/Kwai_KSVQE.yml): B=1, T=96 as one clip,
 # 9x9 fragments of 32 px, s2d-packed; Swin-T 3D, windows (8, 7, 7).
 T = 96
+# The resize view of the shipped configs (size_h/size_w 112): CLIP ViT-B/16
+# encodes it as 7x7 patch tokens, the semantic cross-attention's keys.
+RESIZE = 112
+CLIP_TOKENS = (RESIZE // 16) ** 2
 STAGES = [  # (dims after patch embed/merges, C, heads, frag bias)
     ((48, 56, 56), 96, 3, True),
     ((48, 28, 28), 192, 6, True),
@@ -314,7 +339,8 @@ def attention_cases(gen):
     for m, (C, h, hw) in enumerate(CDM):
         tg = (T // 2) // 4
         q = torch.randn(4, tg * hw, C, generator=gen, device="cuda").to(bf)
-        kv = torch.randn(2, 4, 196, C, generator=gen, device="cuda").to(bf)
+        kv = torch.randn(2, 4, CLIP_TOKENS, C, generator=gen,
+                         device="cuda").to(bf)
         cases.append((f"cdm{m}.sem_cross", q, kv[0], kv[1], h, C ** -0.5))
         q = torch.randn(T // 2, hw, C, generator=gen, device="cuda").to(bf)
         kv = torch.randn(2, T // 2, 49, C, generator=gen, device="cuda").to(bf)
@@ -984,13 +1010,13 @@ N_BATCHES = 8  # scored batches of each timed main-path run
 def make_batch(rng, i: int) -> dict:
     """One eval batch in the Loader's format at the shipped shapes: the
     9x9x32 px fragment mosaic of 96 frames, s2d-packed on the host, and the
-    224 px resize view."""
+    112 px resize view."""
     from kvq_tpu_torch.data.fragments import s2d_pack
 
     mosaic = rng.standard_normal((T, 288, 288, 3), dtype=np.float32)
     return {
         "fragment": s2d_pack(mosaic)[None],                 # (1,48,72,72,96)
-        "resize_video": rng.standard_normal((1, T, 224, 224, 3),
+        "resize_video": rng.standard_normal((1, T, RESIZE, RESIZE, 3),
                                             dtype=np.float32),
         "label": np.asarray([rng.normal()], np.float32),
         "dis_label": np.asarray([i % 4], np.int32),
@@ -1332,7 +1358,7 @@ def swin_path(card: str) -> dict:
 def make_train_batch(rng, i: int) -> dict:
     """One train batch in the Loader's format at the shipped shapes: B=4
     fragment mosaics of 32 frames (9x9x32 px), s2d-packed on the host, the
-    224 px resize views, labels and distortion labels."""
+    112 px resize views, labels and distortion labels."""
     from kvq_tpu_torch.data.fragments import s2d_pack
 
     frags = [s2d_pack(rng.standard_normal((TRAIN_T, 288, 288, 3),
@@ -1340,8 +1366,8 @@ def make_train_batch(rng, i: int) -> dict:
              for _ in range(TRAIN_B)]
     return {
         "fragment": np.stack(frags),                        # (4,16,72,72,96)
-        "resize_video": rng.standard_normal((TRAIN_B, TRAIN_T, 224, 224, 3),
-                                            dtype=np.float32),
+        "resize_video": rng.standard_normal(
+            (TRAIN_B, TRAIN_T, RESIZE, RESIZE, 3), dtype=np.float32),
         "label": rng.standard_normal(TRAIN_B).astype(np.float32),
         "dis_label": np.asarray([(i + j) % 3 for j in range(TRAIN_B)],
                                 np.int32),
@@ -1713,6 +1739,293 @@ def swin_train_path(card: str) -> dict:
             "n_params": n_params, "profile": prof}
 
 
+# config/Kwai_KSVQE_test.yml's val view and config/Kwai_KSVQE.yml's train
+# view (9x9 fragments of 32 px, the 112 px resize view, 32-frame clips)
+VAL_VIEW = {"fragments_h": 9, "fragments_w": 9, "fsize_h": 32, "fsize_w": 32,
+            "size_h": RESIZE, "size_w": RESIZE, "aligned": 8, "clip_len": 32,
+            "frame_interval": 4, "num_clips": 3}
+TRAIN_VIEW = dict(VAL_VIEW, num_clips=1)
+# synthetic videos of the CLI phases: portrait short-form frames (H x W)
+CLI_FRAMES, CLI_H, CLI_W = 300, 1280, 720
+CLI_VIDEOS = 16                  # scored through cli.test
+CLI_TRAIN_VIDEOS, CLI_VAL_VIDEOS = 8, 4  # trained / validated by cli.train
+
+
+class SyntheticVideos:
+    """A dataset's ``source_factory``: the file name's synthetic 1280x720
+    video (seeded by the name's crc32), noting when it was first asked
+    for."""
+
+    def __init__(self):
+        self.first = None
+
+    def __deepcopy__(self, memo):  # the config's copies share the factory
+        return self
+
+    def __call__(self, path):
+        from kvq_tpu_torch.data.decode import SyntheticVideoSource
+
+        if self.first is None:
+            self.first = time.perf_counter()
+        name = os.path.basename(path)
+        return SyntheticVideoSource(CLI_FRAMES, CLI_H, CLI_W,
+                                    seed=zlib.crc32(name.encode()) % 2 ** 31)
+
+
+def write_split(root, split, n, rng) -> list[tuple[str, float]]:
+    """A 4-column annotation TXT (``filename,cls_label,dis_label,score``)
+    of ``n`` videos under ``root``; returns (name, score)."""
+    rows = [(f"{split}_{i:02d}.mp4", float(rng.uniform(1, 5)))
+            for i in range(n)]
+    with open(os.path.join(root, f"{split}.txt"), "w") as f:
+        f.writelines(f"{name},{i % 3},{i % 4},{score}\n"
+                     for i, (name, score) in enumerate(rows))
+    return rows
+
+
+def kvq_split(root, split, phase, view, factory) -> dict:
+    return {"type": "ViewDecompositionDataset_KVQ", "args": {
+        "phase": phase, "anno_file": os.path.join(root, f"{split}.txt"),
+        "data_prefix": root, "sample_types": {"technical": dict(view)},
+        "source_factory": factory}}
+
+
+def loader_split(dataset, n: int = 2) -> dict:
+    """The host's ms per video of ``dataset`` (a KVQDataset), by stage, on
+    one thread over ``n`` videos: the synthetic source's frames, the mosaic,
+    the resize view, the two normalisations, the s2d pack and the collate."""
+    from kvq_tpu_torch.data import views as V
+    from kvq_tpu_torch.data.datasets import _filter_view_opts
+    from kvq_tpu_torch.data.decode import decode_views
+    from kvq_tpu_torch.data.fragments import s2d_pack
+    from kvq_tpu_torch.data.pipeline import collate
+
+    ms = dict.fromkeys(("synthetic frames", "mosaic", "resize", "normalise",
+                        "s2d pack", "collate"), 0.0)
+
+    def timed(stage, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        ms[stage] += (time.perf_counter() - t0) * 1e3 / n
+        return out
+
+    for i in range(n):
+        rng = dataset._rng(i)
+        source = dataset.source_factory(dataset.video_infos[i]["filename"])
+        videos, _ = timed("synthetic frames", decode_views, source,
+                          dataset._samplers(rng))
+        raw = videos["technical"]
+        sopt = _filter_view_opts(dataset.sample_types["technical"])
+        frag = timed("mosaic", V.get_single_view, raw, "technical", rng=rng,
+                     **sopt)
+        res = timed("resize", V.get_resized_video, raw, **sopt)
+        frag = timed("normalise", V.normalize, frag, "imagenet_255")
+        res = timed("normalise", V.normalize, res, "clip")
+        frag = timed("s2d pack", s2d_pack, frag)
+        timed("collate", collate, [{"fragment": frag, "resize_video": res,
+                                    "label": 1.0, "video_name": "v"}])
+    return ms
+
+
+def cli_eval_path(card: str) -> dict:
+    """KSVQE scoring through ``kvq_tpu_torch.cli.test.run`` (dataset ->
+    Loader -> Evaluator -> output.txt) on synthetic videos."""
+    import torch
+
+    from kvq_tpu_torch.cli import metric_score as cli_metric
+    from kvq_tpu_torch.cli import test as cli_test
+    from kvq_tpu_torch.data.pipeline import build_loaders
+    from kvq_tpu_torch.train.evaluator import Evaluator
+
+    print(f"cli eval: {CLI_VIDEOS} synthetic {CLI_H}x{CLI_W} videos of "
+          f"{CLI_FRAMES} frames (SyntheticVideoSource, chosen by the "
+          f"config's source_factory: no file is decoded)", flush=True)
+    root = tempfile.mkdtemp(prefix="kvq_cli_eval_")
+    rows = write_split(root, "val", CLI_VIDEOS, np.random.default_rng(2))
+    factory = SyntheticVideos()
+    config = {**KSVQE_CONFIG, "num_workers": 6, "data": {
+        "val": kvq_split(root, "val", "test", VAL_VIEW, factory)}}
+
+    # the Loader alone, then the Evaluator on the same batches
+    _, loader = build_loaders(config)
+    t0 = time.perf_counter()
+    batches = list(loader.epoch(0))
+    loader_s = time.perf_counter() - t0
+    split_ms = loader_split(loader.dataset)
+    ev = Evaluator(config, device="cuda")
+    want = dict(ev.inference_test(batches, os.path.join(root, "ref.txt")))
+    del ev, batches
+    torch.cuda.empty_cache()
+
+    out, csv = os.path.join(root, "output.txt"), os.path.join(root, "pred.csv")
+    reset_counts()
+    factory.first = None
+    results = cli_test.run(config, out, csv)
+    end = time.perf_counter()
+    counts = kernel_counts()
+    e2e_s = end - factory.first
+    factory.first = None
+    prof = profile_device(lambda: cli_test.run(config, out + ".profiled"))
+    idle = 1.0 - prof["device_ms"] / (e2e_s * 1e3)
+
+    with open(out) as f:
+        lines = f.read().splitlines()
+    scores = [s for _, s in results]
+    if (len(lines) != CLI_VIDEOS or [n for n, _ in results]
+            != [n for n, _ in rows] or not all(map(math.isfinite, scores))):
+        fail(f"cli.test wrote {len(lines)} lines, scores {scores}")
+    if lines != [f"{n},{s}" for n, s in results]:
+        fail("output.txt does not hold the scored videos")
+    if counts != dict(NO_LAUNCHES, fused_swin_block=12 * CLI_VIDEOS,
+                      flash_attention_nobias_cl=9 * CLI_VIDEOS):
+        fail(f"cli.test: expected 12 K1 and 9 K2 launches per forward and "
+             f"no other kernel, got {counts}")
+    diffs = [abs(s - want[n]) for n, s in results]
+    worst = max(d / (SCORE_TOL * max(1.0, abs(want[n])))
+                for d, (n, _) in zip(diffs, results))
+    print(f"cli.test.run: {CLI_VIDEOS} videos scored in {e2e_s:.3f} s from "
+          f"the first item to the file written = {CLI_VIDEOS / e2e_s:.3f} "
+          f"videos/s; launches {counts}; scores against the Evaluator on the "
+          f"same Loader's batches: max|d| {max(diffs):.4g} (tol SCORE_TOL "
+          f"{SCORE_TOL} x max(1, |score|)); device busy over a profiled run "
+          f"{prof['device_ms']:.2f} ms, idle share {idle:.3f} of the "
+          f"unprofiled run; {card}", flush=True)
+    if not worst <= 1.0:
+        fail("cli.test's scores disagree with the Evaluator's")
+    print(f"the Loader alone ({loader.num_workers} threads): {CLI_VIDEOS} "
+          f"videos in {loader_s:.3f} s = {CLI_VIDEOS / loader_s:.3f} "
+          f"videos/s; one thread, ms per video: "
+          f"{json.dumps({k: round(v, 2) for k, v in split_ms.items()})} "
+          f"(synthetic frames are generated, not decoded); {card}",
+          flush=True)
+
+    truth = os.path.join(root, "truth.csv")
+    with open(truth, "w") as f:
+        f.write("filename,score\n")
+        f.writelines(f"{n},{s}\n" for n, s in rows)
+    pairs = os.path.join(root, "pairs")
+    os.makedirs(pairs)
+    order = sorted(rows, key=lambda r: -r[1])
+    for sheet, step in (("nonsource", 3), ("source", 5)):
+        with open(os.path.join(pairs, f"{sheet}.csv"), "w") as f:
+            f.write("better,worse\n")
+            f.writelines(f"{order[i][0]},{order[i + step][0]}\n"
+                         for i in range(0, CLI_VIDEOS - step, 2))
+    res = cli_metric.main(["--pred", csv, "--truth", truth, "--rank_pairs",
+                           pairs])
+    formula = (0.45 * res["srcc"] + 0.45 * res["plcc"]
+               + 0.05 * res["acc_nonsource"] + 0.05 * res["acc_source"])
+    if not (all(map(math.isfinite, res.values()))
+            and abs(res["score"] - formula) <= 1e-12):
+        fail(f"cli.metric_score: {res}")
+    shutil.rmtree(root)
+    return {"videos_per_s": CLI_VIDEOS / e2e_s, "e2e_s": e2e_s,
+            "loader_videos_per_s": CLI_VIDEOS / loader_s,
+            "host_ms_per_video": split_ms, "launches": counts,
+            "max_abs_score_diff": max(diffs), "device_busy_ms":
+            prof["device_ms"], "idle_share": idle,
+            "launch_calls": prof["launch_calls"], "metric_score": res}
+
+
+def cli_train_path(card: str) -> dict:
+    """KSVQE training through ``kvq_tpu_torch.cli.train.run`` on synthetic
+    videos: one epoch, then one more resumed from its ``_last_state.pt``."""
+    import torch
+
+    from kvq_tpu_torch.cli import train as cli_train
+    from kvq_tpu_torch.train.optim import schedule_factor
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    print(f"cli train: {CLI_TRAIN_VIDEOS} + {CLI_VAL_VIDEOS} synthetic "
+          f"{CLI_H}x{CLI_W} videos of {CLI_FRAMES} frames (SyntheticVideoSource, "
+          f"chosen by the config's source_factory: no file is decoded)",
+          flush=True)
+    root = tempfile.mkdtemp(prefix="kvq_cli_train_")
+    rng = np.random.default_rng(3)
+    write_split(root, "train", CLI_TRAIN_VIDEOS, rng)
+    write_split(root, "val", CLI_VAL_VIDEOS, rng)
+    config = {**TRAIN_CONFIG, "num_workers": 6, "data": {
+        "train": kvq_split(root, "train", "train", TRAIN_VIEW,
+                           SyntheticVideos()),
+        "val": kvq_split(root, "val", "test", VAL_VIEW, SyntheticVideos())}}
+    work = os.path.join(root, "work")
+    state = os.path.join(work, "KSVQE_last_state.pt")
+
+    # each train epoch inside the CLI is timed from its first batch request
+    # to its losses read back (the host pipeline included)
+    epoch_s = []
+    train_epoch = Trainer.train_epoch
+
+    def timed_epoch(self, batches):
+        t0 = time.perf_counter()
+        out = train_epoch(self, batches)
+        epoch_s.append(time.perf_counter() - t0)
+        return out
+
+    reset_counts()
+    runs = []
+    Trainer.train_epoch = timed_epoch
+    try:
+        for resume in (None, state):
+            t0 = time.perf_counter()
+            tr = cli_train.run(config, work, "val", epochs=1, seed=0,
+                               resume_from=resume, device="cuda")
+            wall = time.perf_counter() - t0
+            runs.append((wall, epoch_s[-1], dict(tr.last_losses)))
+            if not all(map(math.isfinite, tr.last_losses.values())):
+                fail(f"cli.train: losses not finite: {tr.last_losses}")
+    finally:
+        Trainer.train_epoch = train_epoch
+    counts = kernel_counts()
+    steps, evals = tr.step, 2 * 2 * CLI_VAL_VIDEOS  # raw + EMA, 2 epochs
+    spe = CLI_TRAIN_VIDEOS // TRAIN_B
+    want_lr = 3e-5 * schedule_factor(steps, int(2.5 * spe), 50 * spe)
+    lr = tr.optimizer.param_groups[0]["lr"]
+    files = sorted(os.listdir(work))
+    print(f"cli.train.run: step {steps} after one epoch and one resumed "
+          f"epoch; lr {lr:.6g} (schedule at update {steps}: {want_lr:.6g}); "
+          f"files {files}; launches {counts}; per run: wall (build, 2 steps, "
+          f"evaluation of {CLI_VAL_VIDEOS} videos twice, state written) "
+          f"{[round(r[0], 3) for r in runs]} s, its train epoch (first batch "
+          f"asked for to losses read) {[round(r[1], 3) for r in runs]} s = "
+          f"{[round(spe / r[1], 3) for r in runs]} steps/s including the "
+          f"host pipeline; last losses {[r[2] for r in runs]}; {card}",
+          flush=True)
+    if steps != 2 * spe or tr.schedule.last_epoch != steps:
+        fail(f"cli.train: step {steps}, schedule at "
+             f"{tr.schedule.last_epoch}, expected {2 * spe}")
+    if not math.isclose(lr, want_lr, rel_tol=1e-9, abs_tol=1e-15):
+        fail("cli.train: the schedule did not continue")
+    if files != ["KSVQE_head_val_n_finetuned.pth",
+                 "KSVQE_head_val_s_finetuned.pth", "KSVQE_last_state.pt"]:
+        fail(f"cli.train: wrote {files}")
+    if counts != dict(NO_LAUNCHES, train_swin_block=10 * steps,
+                      train_swin_block_bwd=10 * steps,
+                      window_attention_train=2 * steps,
+                      window_attention_train_bwd=2 * steps,
+                      fused_swin_block=12 * evals,
+                      flash_attention_nobias_cl=9 * evals):
+        fail(f"cli.train: expected K4 10 + 10 and K5 2 + 2 a step and 12 "
+             f"K1 + 9 K2 a val forward, got {counts}")
+    norms = torch.stack(torch._foreach_norm(tr.params))
+    if not bool(torch.isfinite(norms).all()):
+        fail("cli.train: trained parameters are not finite")
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    return {"steps": steps, "lr": lr, "files": files, "launches": counts,
+            "runs": [{"wall_s": w, "train_epoch_s": e,
+                      "steps_per_s": spe / e, "last_losses": l}
+                     for w, e, l in runs]}
+
+
+def host_packages() -> str:
+    """Which of the host readers the JAX package uses are installed."""
+    return ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("cv2", "yaml", "pandas", "openpyxl", "msgpack"))
+
+
 def main() -> int:
     try:
         import torch
@@ -1730,6 +2043,7 @@ def main() -> int:
         return 1
     card = card_line()
     print(f"card: {card}", flush=True)
+    print(f"host packages: {host_packages()}", flush=True)
     t0 = time.time()
     reports = build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
@@ -1749,6 +2063,8 @@ def main() -> int:
     swin = swin_path(card)
     train = train_path(card)
     swin_train = swin_train_path(card)
+    cli_eval = cli_eval_path(card)
+    cli_train_run = cli_train_path(card)
 
     def record(name, source, replaces, agg, launches, lib,
                per="the calls of one forward"):
@@ -1834,6 +2150,7 @@ def main() -> int:
                    "k3_rows": k3["rows"], "k6_rows": k6["rows"],
                    "k7_rows": k7["rows"], "gemm": gemm, "run": run,
                    "swin": swin, "train": train, "swin_train": swin_train,
+                   "cli_eval": cli_eval, "cli_train": cli_train_run,
                    "kernels": kernels}, f,
                   indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line

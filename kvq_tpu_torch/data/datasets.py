@@ -1,0 +1,278 @@
+"""Datasets producing the reference's per-sample dict (copy of
+kvq_tpu/data/datasets.py; channels-last numpy arrays instead of torch CHW
+tensors).
+
+  - :class:`KVQDataset`       == ViewDecompositionDataset_KVQ
+        (fusion_datasets.py:930-1051): 4-column TXT annotations
+        ``filename,cls_label,dis_label,score``; emits ``fragment``
+        (imagenet_255-normalised mosaic, s2d-packed with ``fragment_s2d``),
+        ``resize_video`` (CLIP-normalised resize view), ``dis_label``,
+        ``label``, ...
+  - :class:`GenericViewDataset` == ViewDecompositionDataset
+        (fusion_datasets.py:664-775): TXT ``filename,_,_,label``.
+
+Reference-name aliases are registered so reference YAML configs resolve
+unchanged (``data.train.type: ViewDecompositionDataset_KVQ``).  Each sample
+draws from ``default_rng((seed, epoch, index))``; ``opt["source_factory"]``
+(path -> video source) replaces the decoder, e.g. with synthetic videos.
+The JAX package's native C++ fragment/resize branch is not ported: this is
+its numpy branch.
+"""
+
+from __future__ import annotations
+
+import os.path as osp
+import zlib
+from typing import Any, Callable
+
+import numpy as np
+
+from ..core.registry import DATASETS
+from . import views as V
+from .decode import SyntheticVideoSource, decode_views, open_video
+from .fragments import get_spatial_fragments, s2d_pack
+from .samplers import make_sampler
+
+
+def _filter_view_opts(sopt: dict) -> dict:
+    """Drop non-view keys before passing a sample_types entry to view fns."""
+    drop = {"clip_len", "frame_interval", "num_clips", "t_frag", "phase"}
+    return {k: v for k, v in sopt.items() if k not in drop}
+
+
+class _ViewDatasetBase:
+    """Common machinery: annotation list, samplers, per-sample RNG."""
+
+    def __init__(self, opt: dict, namelist=None):
+        self.opt = opt
+        self.weight = opt.get("weight", 0.5)
+        self.ann_file = opt["anno_file"]
+        self.data_prefix = opt.get("data_prefix", "")
+        self.sample_types: dict[str, dict] = opt["sample_types"]
+        self.phase = opt.get("phase", "test")
+        self.augment = opt.get("augment", False)
+        self.seed = int(opt.get("seed", 42))
+        self.namelist = namelist
+        # source_factory lets tests inject synthetic videos hermetically.
+        self.source_factory: Callable[[str], Any] = opt.get(
+            "source_factory", lambda path: open_video(path, pad_short=130)
+        )
+        self.video_infos: list[dict] = []
+        self._read_annotations()
+        scores = [vi["label"] for vi in self.video_infos]
+        self.max = max(scores) if scores else 0.0
+        self.min = min(scores) if scores else 0.0
+
+    # per-sample deterministic generator (the reference draws from global,
+    # unseeded state)
+    def _rng(self, index: int, epoch: int = 0) -> np.random.Generator:
+        return np.random.default_rng((self.seed, epoch, index))
+
+    def _read_annotations(self) -> None:
+        raise NotImplementedError
+
+    def _samplers(self, rng: np.random.Generator) -> dict:
+        return {k: make_sampler(s, rng=rng) for k, s in self.sample_types.items()}
+
+    def __len__(self) -> int:
+        return len(self.video_infos)
+
+
+@DATASETS.register("KVQDataset")
+class KVQDataset(_ViewDatasetBase):
+    def _read_annotations(self) -> None:
+        if isinstance(self.ann_file, list):
+            self.video_infos = self.ann_file
+            return
+        with open(self.ann_file, "r") as fin:
+            for line in fin:
+                filename, cls_label, dis_label, label = line.strip().split(",")
+                self.video_infos.append(
+                    dict(
+                        filename=osp.join(self.data_prefix, filename),
+                        label=float(label),
+                        cls_label=int(float(cls_label)),
+                        dis_label=int(float(dis_label)),
+                        video_name=filename,
+                    )
+                )
+
+    def __getitem__(self, index: int, epoch: int = 0) -> dict:
+        info = self.video_infos[index]
+        rng = self._rng(index, epoch)
+        is_train = self.phase == "train"
+        source = self.source_factory(info["filename"])
+        videos, frame_inds = decode_views(source, self._samplers(rng), is_train)
+
+        data: dict[str, Any] = {}
+        for stype, raw in videos.items():
+            sopt = _filter_view_opts(self.sample_types[stype])
+            frag = V.get_single_view(raw, stype, rng=rng, **sopt)
+            resize = V.get_resized_video(raw, **sopt)
+            data["fragment"] = V.normalize(frag, "imagenet_255")
+            data["resize_video"] = V.normalize(resize, "clip")
+            # ``ori_fragment`` (the un-normalised mosaic of the reference
+            # batch, fusion_datasets.py:1028, which nothing reads) only with
+            # ``opt["return_ori_fragment"] = True``.
+            if self.opt.get("return_ori_fragment", False):
+                data["ori_fragment"] = get_spatial_fragments(
+                    raw, rng=rng, **sopt
+                ).astype(np.float32)
+            data["original_shape"] = raw.shape
+
+        data["num_clips"] = {k: s["num_clips"] for k, s in self.sample_types.items()}
+        data["clip_len"] = {k: s["clip_len"] for k, s in self.sample_types.items()}
+        data["frame_inds"] = frame_inds
+        data["dis_label"] = info["dis_label"]
+        data["label"] = info["label"]
+        # global dataset position: lets sharded/mesh eval identify and
+        # dedupe rows without assuming device ordering
+        data["sample_index"] = int(index)
+        data["name"] = info["filename"]
+        data["video_name"] = info["video_name"]
+        # opt-in: ship the fragment space-to-depth packed (s2d_pack) for a
+        # model built with ``s2d_input: true``, whose patch embed is then
+        # one plain matmul
+        if self.opt.get("fragment_s2d", False):
+            data["fragment"] = s2d_pack(np.ascontiguousarray(data["fragment"]))
+        return data
+
+
+@DATASETS.register("GenericViewDataset")
+class GenericViewDataset(_ViewDatasetBase):
+    def _read_annotations(self) -> None:
+        if isinstance(self.ann_file, list):
+            self.video_infos = self.ann_file
+            return
+        with open(self.ann_file, "r") as fin:
+            for line in fin:
+                parts = line.strip().split(",")
+                filename, label = parts[0], float(parts[-1])
+                self.video_infos.append(
+                    dict(
+                        filename=osp.join(self.data_prefix, filename),
+                        label=label,
+                        video_name=filename,
+                    )
+                )
+
+    def __getitem__(self, index: int, epoch: int = 0) -> dict:
+        info = self.video_infos[index]
+        rng = self._rng(index, epoch)
+        is_train = self.phase == "train"
+        source = self.source_factory(info["filename"])
+        videos, frame_inds = decode_views(source, self._samplers(rng), is_train)
+
+        data: dict[str, Any] = {}
+        for stype, raw in videos.items():
+            sopt = _filter_view_opts(self.sample_types[stype])
+            view = V.get_single_view(raw, stype, rng=rng, **sopt)
+            # 0-255 ImageNet normalization (reference fusion_datasets.py:687-688)
+            data[stype] = V.normalize(view, "imagenet_255")
+
+        data["num_clips"] = {k: s["num_clips"] for k, s in self.sample_types.items()}
+        data["clip_len"] = {k: s["clip_len"] for k, s in self.sample_types.items()}
+        data["frame_inds"] = frame_inds
+        data["label"] = info["label"]
+        # global dataset position: lets sharded/mesh eval identify and
+        # dedupe rows without assuming device ordering
+        data["sample_index"] = int(index)
+        data["video_name"] = info["video_name"]
+        data["name"] = info["filename"]
+        return data
+
+
+# Reference-name aliases so unmodified reference YAML configs resolve.
+ViewDecompositionDataset_KVQ = KVQDataset
+ViewDecompositionDataset = GenericViewDataset
+DATASETS.register("ViewDecompositionDataset_KVQ")(KVQDataset)
+DATASETS.register("ViewDecompositionDataset")(GenericViewDataset)
+
+
+def make_synthetic_opt(
+    n_videos: int = 4,
+    n_frames: int = 140,
+    height: int = 540,
+    width: int = 960,
+    sample_types: dict | None = None,
+    phase: str = "train",
+    seed: int = 0,
+) -> dict:
+    """Build a dataset opt backed by synthetic in-memory videos (hermetic)."""
+    ann = [
+        dict(
+            filename=f"synthetic_{i}.mp4",
+            label=float(i) / max(n_videos - 1, 1) * 4 + 1,
+            cls_label=i % 3,
+            dis_label=i % 4,
+            video_name=f"synthetic_{i}.mp4",
+        )
+        for i in range(n_videos)
+    ]
+    st = sample_types or {}
+    opt = {
+        "anno_file": ann,
+        "data_prefix": "",
+        "phase": phase,
+        "seed": seed,
+        "sample_types": st,
+        # NOTE: zlib.crc32, NOT hash() — python string hashing is salted
+        # per process, which would give every process (multi-host tests,
+        # test re-runs) different synthetic data for the same name.
+        "source_factory": lambda path: SyntheticVideoSource(
+            n_frames, height, width, seed=zlib.crc32(path.encode()) % (2**31)
+        ),
+    }
+    return opt
+
+
+def make_learnable_synthetic_opt(
+    n_videos: int = 16,
+    n_frames: int = 140,
+    height: int = 540,
+    width: int = 960,
+    sample_types: dict | None = None,
+    phase: str = "train",
+    seed: int = 0,
+) -> dict:
+    """Synthetic dataset whose labels are LEARNABLE, not arbitrary.
+
+    Each video is a smooth pattern + Gaussian noise of per-video amplitude
+    ``a`` (SyntheticVideoSource noise mode); the quality label is the
+    computable statistic ``5 - 4a`` (clean = 5, noisiest = 1) and
+    ``dis_label`` buckets ``a`` into 4 groups so the KSVQE supervised
+    contrastive distortion loss is also meaningful.  Different phases draw
+    different videos AND different amplitudes from the same distribution,
+    so a held-out split tests generalisation of the noise -> score
+    mapping.
+    """
+    rng = np.random.default_rng((seed, zlib.crc32(phase.encode())))
+    amps = rng.permutation(np.linspace(0.05, 0.95, n_videos))
+    # phase-distinct jitter keeps val amplitudes off the train grid
+    amps = np.clip(amps + rng.uniform(-0.02, 0.02, n_videos), 0.0, 1.0)
+    names = [f"learnable_{phase}_{i}.mp4" for i in range(n_videos)]
+    ann = [
+        dict(
+            filename=names[i],
+            label=float(5.0 - 4.0 * amps[i]),
+            cls_label=i % 3,
+            dis_label=int(min(amps[i] * 4, 3)),
+            video_name=names[i],
+        )
+        for i in range(n_videos)
+    ]
+    amp_by_path = {names[i]: float(amps[i]) for i in range(n_videos)}
+    st = sample_types or {}
+    opt = {
+        "anno_file": ann,
+        "data_prefix": "",
+        "phase": phase,
+        "seed": seed,
+        "sample_types": st,
+        "source_factory": lambda path: SyntheticVideoSource(
+            n_frames, height, width,
+            seed=zlib.crc32(path.encode()) % (2**31),
+            noise_amp=amp_by_path[path],
+        ),
+    }
+    return opt

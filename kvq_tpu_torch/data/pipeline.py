@@ -1,25 +1,223 @@
-"""Batch preparation and device feeding for eval and training (counterpart
-of the batch helpers of kvq_tpu/train/trainer.py:62-110, 143-148, 408-426
-and of kvq_tpu/data/pipeline.py:device_prefetch).
+"""The host pipeline: batching, the threaded ``Loader`` and the loaders of a
+config (counterpart of kvq_tpu/data/pipeline.py:31-162 and of
+kvq_tpu/train/trainer.py:178-218), then batch preparation and device
+feeding for eval and training (counterpart of the batch helpers of
+kvq_tpu/train/trainer.py:62-110, 143-148, 408-426 and of
+kvq_tpu/data/pipeline.py:device_prefetch).
 
-Batches arrive in the JAX ``Loader``'s collated format: numpy arrays for
-the views and scalars, lists for metadata (``video_name``, ``num_clips``).
-An eval batch is padded to the eval batch size and clip-reshaped; a train
-batch, the fields its model keys read (:func:`train_fields`: KSVQE's
-``fragment``, ``resize_video``, ``label``, ``dis_label``; a Swin key's
-``technical`` and ``label``), is neither (:func:`train_host_tensors`).
-Both are pre-cast on a worker thread (:func:`prepared_in_background`) and
-copied ahead on a side stream (:func:`prefetch_to_device`).
+The ``Loader`` yields collated batches: numpy arrays for the views and
+scalars, lists for metadata (``video_name``, ``num_clips``).  An eval batch
+is padded to the eval batch size and clip-reshaped; a train batch, the
+fields its model keys read (:func:`train_fields`: KSVQE's ``fragment``,
+``resize_video``, ``label``, ``dis_label``; a Swin key's ``technical`` and
+``label``), is neither (:func:`train_host_tensors`).  Both are pre-cast on
+a worker thread (:func:`prepared_in_background`) and copied ahead on a
+side stream (:func:`prefetch_to_device`).
 """
 
 from __future__ import annotations
 
 import collections
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
+
+from ..core.registry import DATASETS
+from . import datasets  # noqa: F401  (registers the dataset classes)
+
+# fields collate stacks whatever their type (kvq_tpu/data/pipeline.py)
+_COLLATE_ARRAY_KEYS = (
+    "fragment",
+    "resize_video",
+    "ori_fragment",
+    "simpleVQA",
+    "technical",
+    "aesthetic",
+    "feat",
+)
+
+
+def collate(items: Sequence[dict]) -> dict[str, Any]:
+    """Stack array fields, gather scalars into arrays, pass through meta."""
+    out: dict[str, Any] = {}
+    first = items[0]
+    for k in first:
+        v = first[k]
+        if k in _COLLATE_ARRAY_KEYS or (isinstance(v, np.ndarray)
+                                        and v.ndim >= 2):
+            out[k] = np.stack([it[k] for it in items])
+        elif isinstance(v, (int, np.integer)):
+            out[k] = np.asarray([it[k] for it in items], dtype=np.int32)
+        elif isinstance(v, (float, np.floating)):
+            out[k] = np.asarray([it[k] for it in items], dtype=np.float32)
+        else:
+            out[k] = [it[k] for it in items]
+    return out
+
+
+class Loader:
+    """Threaded batch loader over an indexable dataset
+    (``dataset.__getitem__(index, epoch=...)``).
+
+    ``epoch(e)`` yields the batches of epoch ``e`` in order, each made by
+    one of ``num_workers`` threads (decode, views and collate are numpy and
+    release the interpreter lock); at most ``2 * num_workers`` batches are
+    made ahead of the consumer.  A worker's error is raised to the
+    consumer.  ``shuffle`` permutes with ``default_rng((seed, epoch))``;
+    ``drop_last`` drops a short last batch; ``shard`` = (index, count)
+    takes every count-th sample of the list tiled to a multiple of count
+    (torch's DistributedSampler, reference trainer_ddp.py:144-156), so every
+    shard has as many batches.  Each batch's ``sample_index`` is the
+    dataset positions of its samples.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = False,
+        num_workers: int = 6,
+        seed: int = 42,
+        drop_last: bool = False,
+        shard: tuple[int, int] = (0, 1),
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.drop_last = drop_last
+        self.shard = shard
+
+    def _epoch_indices(self, epoch: int) -> np.ndarray:
+        n = len(self.dataset)
+        idx = np.arange(n)
+        if self.shuffle:
+            idx = np.random.default_rng((self.seed, epoch)).permutation(n)
+        k, world = self.shard
+        if world > 1 and n > 0:
+            # np.resize tiles, so every shard gets ceil(n / world) samples
+            # even when the dataset is smaller than the world
+            total = -(-n // world) * world
+            idx = np.resize(idx, total)
+        return idx[k::world]
+
+    def __len__(self) -> int:
+        n = len(self._epoch_indices(0))
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def epoch(self, epoch: int = 0) -> Iterator[dict]:
+        indices = self._epoch_indices(epoch)
+        batches = [
+            indices[i : i + self.batch_size]
+            for i in range(0, len(indices), self.batch_size)
+        ]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+        if not batches:
+            return
+
+        work: "queue.Queue[tuple[int, np.ndarray] | None]" = queue.Queue()
+        for i, b in enumerate(batches):
+            work.put((i, b))
+        for _ in range(self.num_workers):
+            work.put(None)
+        done: dict[int, dict] = {}
+        done_lock = threading.Condition()
+        # a slot per batch taken and not yet consumed, so that a Loader
+        # faster than its consumer holds a bounded number of batches (a KVQ
+        # eval batch is ~110 MB); workers take tasks in order, so the batch
+        # the consumer waits for always holds a slot
+        slots = threading.Semaphore(2 * self.num_workers)
+        stop = threading.Event()
+
+        def worker():
+            while True:
+                slots.acquire()
+                task = None if stop.is_set() else work.get()
+                if task is None:
+                    return
+                i, idxs = task
+                try:
+                    items = [
+                        self.dataset.__getitem__(int(j), epoch=epoch)
+                        for j in idxs
+                    ]
+                    batch = collate(items)
+                    batch["sample_index"] = np.asarray(idxs, np.int32)
+                except Exception as e:  # raised to the consumer
+                    batch = {"__error__": e}
+                with done_lock:
+                    done[i] = batch
+                    done_lock.notify_all()
+
+        threads = [
+            threading.Thread(target=worker, daemon=True)
+            for _ in range(self.num_workers)
+        ]
+        for t in threads:
+            t.start()
+
+        try:
+            for i in range(len(batches)):
+                with done_lock:
+                    while i not in done:
+                        done_lock.wait()
+                    batch = done.pop(i)
+                slots.release()
+                if "__error__" in batch:
+                    raise batch["__error__"]
+                yield batch
+        finally:
+            # let blocked workers see the stop and exit
+            stop.set()
+            for _ in threads:
+                slots.release()
+
+    def __iter__(self):
+        return self.epoch(0)
+
+
+def _s2d_input(config: dict) -> bool:
+    model = config["model"]
+    return bool(model.get("args", {}).get(model["type"], {})
+                .get("backbone", {}).get("s2d_input", False))
+
+
+def build_loaders(config: dict) -> tuple[Loader | None, Loader | None]:
+    """``(train, val)`` Loaders of ``config['data']`` (None for a split the
+    config lacks), as the JAX trainer builds them: the dataset class by its
+    registered ``type``; the model's ``s2d_input`` asks both splits for
+    s2d-packed fragments; train batches of ``batch_size``, shuffled by
+    ``seed``, the short last one dropped; val batches of
+    ``eval_batch_size`` (else 1), in order; ``num_workers`` threads."""
+    data_cfg = config["data"]
+    nw = int(config.get("num_workers", 6))
+    s2d = _s2d_input(config)
+
+    def dataset(split):
+        args = dict(data_cfg[split]["args"])
+        if s2d:
+            args["fragment_s2d"] = True
+        return DATASETS.get(data_cfg[split]["type"])(args)
+
+    train = val = None
+    if "train" in data_cfg:
+        train = Loader(dataset("train"), batch_size=int(config["batch_size"]),
+                       shuffle=True, num_workers=nw,
+                       seed=int(config.get("seed", 42)), drop_last=True)
+    if "val" in data_cfg:
+        val = Loader(dataset("val"),
+                     batch_size=int(config.get("eval_batch_size") or 1),
+                     shuffle=False, num_workers=nw)
+    return train, val
+
 
 ARRAY_BATCH_KEYS = (
     "fragment", "resize_video", "simpleVQA", "technical", "aesthetic",

@@ -55,6 +55,14 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(valid[None, :], w, 0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _resize_weights_on(n_in: int, n_out: int,
+                       device: torch.device) -> torch.Tensor:
+    """:func:`_resize_weights` on ``device``, copied there once: a copy from
+    host memory in every forward would make the host wait for the card."""
+    return torch.as_tensor(_resize_weights(n_in, n_out), device=device)
+
+
 def resize_pos_embed_2d(pos_embed, src_grid: int, dst_grid):
     """(1+S*S, C) -> (1+gh*gw, C): bicubic resize of the grid part
     (reference resize_pos_embed2d, CLIP_backbone.py:35-69, computed as
@@ -63,8 +71,8 @@ def resize_pos_embed_2d(pos_embed, src_grid: int, dst_grid):
     if (src_grid, src_grid) == (gh, gw):
         return pos_embed
     grid = pos_embed[1:].float().reshape(src_grid, src_grid, -1)
-    wh = torch.as_tensor(_resize_weights(src_grid, gh), device=grid.device)
-    ww = torch.as_tensor(_resize_weights(src_grid, gw), device=grid.device)
+    wh = _resize_weights_on(src_grid, gh, grid.device)
+    ww = _resize_weights_on(src_grid, gw, grid.device)
     grid = torch.einsum("ia,ijc,jb->abc", wh, grid, ww)
     return torch.cat([pos_embed[:1].float(), grid.reshape(gh * gw, -1)]
                      ).to(pos_embed.dtype)

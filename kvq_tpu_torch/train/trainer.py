@@ -105,6 +105,7 @@ class Trainer:
         self.step = 0
         self.best = (-1.0, -1.0, -1.0, 1999.0)
         self.best_ema = (-1.0, -1.0, -1.0, 1999.0)
+        self.last_losses: dict[str, float] = {}  # of train_eval's epoch
         self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._frozen = None
         self._evaluator = None
@@ -186,11 +187,12 @@ class Trainer:
 
     def train_eval(self, train_batches: Iterable[dict],
                    val_batches) -> tuple[tuple, tuple]:
-        """One epoch over ``train_batches``, then ``val_batches`` (a
-        sequence: it is scored twice) with the raw and, with the EMA on,
-        the EMA weights; returns ``(best, best_ema)``.  The JAX trainer's
+        """One epoch over ``train_batches`` (its last step's loss terms kept
+        in ``last_losses``), then ``val_batches`` (iterable twice: it is
+        scored with the raw and, with the EMA on, the EMA weights); returns
+        ``(best, best_ema)``.  The JAX trainer's
         ``train_eval_all_epoches``."""
-        self.train_epoch(train_batches)
+        self.last_losses = self.train_epoch(train_batches)
         self.best = self._eval_and_maybe_save(False, self.best, "n",
                                               val_batches)
         if self.use_ema:

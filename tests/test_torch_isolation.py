@@ -14,7 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "kvq_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "kvq_tpu"}
-NOT_AT_MODULE_LEVEL = {"yaml", "cv2"}
+NOT_AT_MODULE_LEVEL = {"yaml", "cv2", "pandas", "openpyxl"}
 
 
 def _sources():
@@ -88,6 +88,33 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
     ev = Evaluator(tiny_config(), device="cpu")
     assert next(ev.model.parameters()).device.type == "cpu"
+
+
+def test_cli_test_needs_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    """``cli.test.main`` without ``--device cpu`` raises where there is no
+    CUDA, before it reads a video or builds a model."""
+    from kvq_tpu_torch.cli import test as cli_test
+    from kvq_tpu_torch.cli import train as cli_train
+
+    from test_torch_modules import tiny_config
+
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text("name: tiny\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    built = []
+    monkeypatch.setattr(cli_test, "build_loaders",
+                        lambda c: built.append(c) or (None, None))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_test.main(["-o", str(cfg), "-out", str(tmp_path / "o.txt")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_test.run(tiny_config(), str(tmp_path / "o.txt"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_train.run(tiny_config(), str(tmp_path / "work"))
+    assert not built and not (tmp_path / "o.txt").exists()
+    with pytest.raises(ValueError, match="data.val"):  # cpu goes on
+        cli_test.run(dict(tiny_config(), data={}), str(tmp_path / "o.txt"),
+                     device="cpu")
+    assert len(built) == 1
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

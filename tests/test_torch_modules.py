@@ -303,7 +303,7 @@ def test_clip_adapters_match_jax():
         _close(a, b, atol=5e-5)
 
 
-@pytest.mark.parametrize("dst", [(2, 2), (3, 3), (20, 20), (14, 14)])
+@pytest.mark.parametrize("dst", [(2, 2), (3, 3), (7, 7), (20, 20), (14, 14)])
 def test_resize_pos_embed_matches_jax(dst):
     from kvq_tpu.nn.clip_vit import resize_pos_embed_2d as jresize
     from kvq_tpu_torch.nn.clip_vit import resize_pos_embed_2d
@@ -311,6 +311,23 @@ def test_resize_pos_embed_matches_jax(dst):
     pe = _rng(14).normal(size=(1 + 14 * 14, 8)).astype(np.float32)
     _close(resize_pos_embed_2d(_t(pe), 14, dst),
            jresize(jnp.asarray(pe), 14, dst), atol=2e-5)
+
+
+def test_resize_pos_embed_copies_its_weights_to_the_device_once(monkeypatch):
+    """At the shipped 112 px view (a 7x7 grid) the resize runs in every
+    CLIP forward: its weights must not be copied from host memory each
+    time (on the card that copy makes the host wait)."""
+    from kvq_tpu_torch.nn import clip_vit
+
+    pe = _t(_rng(3).normal(size=(1 + 14 * 14, 8)).astype(np.float32))
+    first = clip_vit.resize_pos_embed_2d(pe, 14, (7, 7))
+    copies = []
+    real = torch.as_tensor
+    monkeypatch.setattr(torch, "as_tensor",
+                        lambda *a, **k: copies.append(a) or real(*a, **k))
+    again = clip_vit.resize_pos_embed_2d(pe, 14, (7, 7))
+    assert not copies
+    assert torch.equal(first, again)
 
 
 def test_qrs_selects_exactly_the_same_regions():
