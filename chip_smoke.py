@@ -5,8 +5,11 @@ then KSVQE scoring and training through the CLIs — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit;
-2. builds the CUDA kernels from ``kvq_tpu_torch/ops/csrc`` (nvcc, sm_90a);
+1. prints the card's name and power limit, the host's g++ and whether
+   OpenCV's C++ headers and videoio library are there;
+2. builds the CUDA kernels from ``kvq_tpu_torch/ops/csrc`` (nvcc, sm_90a)
+   and, alongside, the native host runtime (``kvq_tpu_torch/runtime``,
+   g++);
 3. holds K1 (fused_swin_block) against its plain version at each shipped
    stage geometry and at swin_tiny_grpb_m's stages 0-1 ((4, 4, 4) windows),
    unshifted and shifted, and K2 (flash_attention_nobias_cl) at the nine
@@ -33,6 +36,8 @@ then KSVQE scoring and training through the CLIs — on one NVIDIA GPU.
    96 frames, the 112 px resize view) through the evaluator
    (``inference_test``), checks finite scores and 12 K1 + 9 K2 launches per
    forward, and compares the kernel path's score with the plain path's;
+   then the same at config/Kwai_KSVQE_test.yml's model block as shipped
+   (tuning_stage 2: 12 K1 + 6 K2 launches per forward);
 7. does the same for swin_tiny_grpb + VQAHead on the technical view of the
    KVQ val config (B=1, 96x288x288 as one clip): 12 K3 launches per forward
    and no other kernel; then one forward of swin_tiny_grpb_m (4 K1 and 8 K3
@@ -52,10 +57,12 @@ then KSVQE scoring and training through the CLIs — on one NVIDIA GPU.
 10. scores 16 synthetic 1280x720 videos of 300 frames through
    ``kvq_tpu_torch.cli.test.run`` with config/Kwai_KSVQE_test.yml's val
    view (the port's KVQDataset, Loader and Evaluator): 16 finite scores in
-   output.txt, 12 K1 + 9 K2 launches per forward, each score within
-   SCORE_TOL of the Evaluator on the same Loader's batches, then
-   ``cli.metric_score`` on the prediction CSV against a truth CSV and rank
-   pairs; prints the CLI's videos/s, the Loader's alone, the host's ms per
+   output.txt, 12 K1 + 9 K2 launches per forward, every item through the
+   native runtime's fused views, each score within SCORE_TOL of the
+   Evaluator on the same Loader's batches, then ``cli.metric_score`` on
+   the prediction CSV against a truth CSV and rank pairs; holds every
+   item's native views within 1e-5 of the numpy branch's; prints the
+   CLI's videos/s, the Loader's alone on each branch, the host's ms per
    video by stage and the card's idle share over the run;
 11. trains KSVQE through ``kvq_tpu_torch.cli.train.run`` with
    config/Kwai_KSVQE.yml's views on 8 synthetic train videos (B=4: 2 steps
@@ -83,6 +90,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -1184,6 +1192,71 @@ def main_path(card: str) -> dict:
             "scores": scores, "plain_score": plain_score, "profile": prof}
 
 
+TS2_BATCHES = 4  # scored batches of the tuning_stage 2 run
+
+
+def tuning_stage_2_path(card: str) -> dict:
+    """KSVQE scoring at config/Kwai_KSVQE_test.yml's model block as shipped
+    (tuning_stage 2: the CDM modulates stages 2-3 only), seeded weights in
+    place of its ``your_checkpoint``: 12 K1 + 6 K2 launches per forward,
+    finite scores, and the kernel path's score against the plain path's."""
+    import torch
+
+    from kvq_tpu_torch.core.config import load_config
+    from kvq_tpu_torch.models.vqa_network import build_model
+    from kvq_tpu_torch.train.evaluator import Evaluator
+
+    shipped = load_config(os.path.join(ROOT, "config",
+                                       "Kwai_KSVQE_test.yml"))
+    config = {"name": shipped["name"], "model": shipped["model"]}
+    bb = config["model"]["args"]["KSVQE"]["backbone"]
+    if (bb["tuning_stage"], bb["a2"], bb["use_pallas"]) != (2, 2, True):
+        fail(f"config/Kwai_KSVQE_test.yml no longer ships tuning_stage 2: "
+             f"{bb}")
+    model = build_model(config, device="cuda", seed=0)
+    rng = np.random.default_rng(5)
+    batches = [make_batch(rng, i) for i in range(TS2_BATCHES)]
+    ev = Evaluator(config, model=model, device="cuda")
+    out_path = os.path.join(tempfile.mkdtemp(prefix="kvq_ts2_"), "output.txt")
+    ev.inference_test(batches[:1], out_path)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = ev.inference_test(batches, out_path)
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    scores = [s for _, s in results]
+    if not all(map(math.isfinite, scores)) or len(scores) != TS2_BATCHES:
+        fail(f"tuning_stage 2: scores {scores}")
+    if launches != dict(NO_LAUNCHES, fused_swin_block=12 * TS2_BATCHES,
+                        flash_attention_nobias_cl=6 * TS2_BATCHES):
+        fail(f"tuning_stage 2: expected 12 K1 and 6 K2 launches per forward "
+             f"and no other kernel, got {launches}")
+    plain_cfg = json.loads(json.dumps(config))
+    plain_cfg["model"]["args"]["KSVQE"]["backbone"]["use_pallas"] = False
+    plain = build_model(plain_cfg, device="cuda",
+                        state_dict=model.state_dict())
+    plain_score = Evaluator(plain_cfg, model=plain, device="cuda"
+                            ).inference_test(batches[:1], out_path)[0][1]
+    d = abs(plain_score - scores[0])
+    tol = SCORE_TOL * max(1.0, abs(plain_score))
+    print(f"tuning_stage 2 (config/Kwai_KSVQE_test.yml's model): "
+          f"{TS2_BATCHES} videos in {wall:.3f} s = {TS2_BATCHES / wall:.3f} "
+          f"videos/s (B=1, T=96); launches per forward: K1 "
+          f"{launches['fused_swin_block'] // TS2_BATCHES}, K2 "
+          f"{launches['flash_attention_nobias_cl'] // TS2_BATCHES}; score "
+          f"kernel path {scores[0]:.6f} vs plain path {plain_score:.6f}: "
+          f"|d|={d:.3g} (tol {tol:.3g}); {card}", flush=True)
+    if not d <= tol:
+        fail("tuning_stage 2: kernel-path score disagrees with the plain "
+             "path")
+    del model, plain, ev
+    torch.cuda.empty_cache()
+    return {"videos_per_s": TS2_BATCHES / wall, "launches": launches,
+            "scores": scores, "plain_score": plain_score,
+            "max_abs_score_diff": d}
+
+
 def forward_timings(model, dev_batch, video_ms: float, card: str) -> dict:
     """One eval forward on a device-resident batch: its device time (CUDA
     events), the host's dispatch, the profiler's device busy and launch
@@ -1791,16 +1864,31 @@ def kvq_split(root, split, phase, view, factory) -> dict:
 
 
 def loader_split(dataset, n: int = 2) -> dict:
-    """The host's ms per video of ``dataset`` (a KVQDataset), by stage, on
-    one thread over ``n`` videos: the synthetic source's frames, the mosaic,
-    the resize view, the two normalisations, the s2d pack and the collate."""
+    """The host's ms per video of ``dataset`` (a KVQDataset), by stage, over
+    ``n`` videos: the synthetic source's frames, the numpy branch's mosaic,
+    resize view and two normalisations, the native branch's fused views
+    (the same work in C++) on one thread and on the runtime's four, the s2d
+    pack and the collate; one thread unless said."""
+    from kvq_tpu_torch import runtime
     from kvq_tpu_torch.data import views as V
-    from kvq_tpu_torch.data.datasets import _filter_view_opts
+    from kvq_tpu_torch.data.datasets import _filter_view_opts, _native_views
     from kvq_tpu_torch.data.decode import decode_views
-    from kvq_tpu_torch.data.fragments import s2d_pack
+    from kvq_tpu_torch.data.fragments import fragment_index_maps, s2d_pack
     from kvq_tpu_torch.data.pipeline import collate
 
+    def native_one_thread(raw, sopt, rng):
+        T, H, W = raw.shape[:3]
+        maps = fragment_index_maps(H, W, T, sopt["fragments_h"],
+                                   sopt["fragments_w"], sopt["fsize_h"],
+                                   sopt["fsize_w"], sopt["aligned"], rng=rng)
+        runtime.fragment_mosaic_normalize(raw, *maps, sopt["aligned"],
+                                          V.IMAGENET_255_MEAN,
+                                          V.IMAGENET_255_STD, n_threads=1)
+        runtime.resize_normalize(raw, sopt["size_h"], sopt["size_w"],
+                                 V.CLIP_MEAN, V.CLIP_STD, True, n_threads=1)
+
     ms = dict.fromkeys(("synthetic frames", "mosaic", "resize", "normalise",
+                        "native views", "native views (4 threads)",
                         "s2d pack", "collate"), 0.0)
 
     def timed(stage, fn, *a, **k):
@@ -1816,6 +1904,15 @@ def loader_split(dataset, n: int = 2) -> dict:
                           dataset._samplers(rng))
         raw = videos["technical"]
         sopt = _filter_view_opts(dataset.sample_types["technical"])
+        if i == 0 and not np.array_equal(
+                runtime.resize(raw, sopt["size_h"], sopt["size_w"]),
+                V.get_resized_video(raw, **sopt)):
+            fail("the native resize's uint8 frames differ from "
+                 "data/resize.py's on this host")
+        timed("native views", native_one_thread, raw, sopt,
+              dataset._rng(i))
+        timed("native views (4 threads)", _native_views, raw, sopt,
+              dataset._rng(i))
         frag = timed("mosaic", V.get_single_view, raw, "technical", rng=rng,
                      **sopt)
         res = timed("resize", V.get_resized_video, raw, **sopt)
@@ -1834,6 +1931,7 @@ def cli_eval_path(card: str) -> dict:
 
     from kvq_tpu_torch.cli import metric_score as cli_metric
     from kvq_tpu_torch.cli import test as cli_test
+    from kvq_tpu_torch.data import datasets as PD
     from kvq_tpu_torch.data.pipeline import build_loaders
     from kvq_tpu_torch.train.evaluator import Evaluator
 
@@ -1846,11 +1944,30 @@ def cli_eval_path(card: str) -> dict:
     config = {**KSVQE_CONFIG, "num_workers": 6, "data": {
         "val": kvq_split(root, "val", "test", VAL_VIEW, factory)}}
 
-    # the Loader alone, then the Evaluator on the same batches
+    # the Loader alone, on the native branch and on the numpy branch (the
+    # one before the native runtime), then the Evaluator on the native
+    # branch's batches
     _, loader = build_loaders(config)
     t0 = time.perf_counter()
     batches = list(loader.epoch(0))
     loader_s = time.perf_counter() - t0
+    PD.NATIVE = False
+    try:
+        t0 = time.perf_counter()
+        numpy_batches = list(loader.epoch(0))
+        numpy_loader_s = time.perf_counter() - t0
+    finally:
+        PD.NATIVE = True
+    item_d = {k: max(float(np.abs(a[k] - b[k]).max())
+                     for a, b in zip(batches, numpy_batches))
+              for k in ("fragment", "resize_video")}
+    print(f"native against numpy branch, every item of the split: max|d| "
+          f"{json.dumps(item_d)} (tolerance 1e-5: the same uint8 pixels, "
+          f"normalised in another f32 order; the uint8 resize of one video "
+          f"is checked equal below)", flush=True)
+    if not max(item_d.values()) <= 1e-5:
+        fail("the native branch's views disagree with the numpy branch's")
+    del numpy_batches
     split_ms = loader_split(loader.dataset)
     ev = Evaluator(config, device="cuda")
     want = dict(ev.inference_test(batches, os.path.join(root, "ref.txt")))
@@ -1858,11 +1975,20 @@ def cli_eval_path(card: str) -> dict:
     torch.cuda.empty_cache()
 
     out, csv = os.path.join(root, "output.txt"), os.path.join(root, "pred.csv")
-    reset_counts()
-    factory.first = None
-    results = cli_test.run(config, out, csv)
-    end = time.perf_counter()
-    counts = kernel_counts()
+    native_views = PD._native_views
+    taken = []
+    PD._native_views = lambda *a: taken.append(1) or native_views(*a)
+    try:
+        reset_counts()
+        factory.first = None
+        results = cli_test.run(config, out, csv)
+        end = time.perf_counter()
+        counts = kernel_counts()
+    finally:
+        PD._native_views = native_views
+    if len(taken) != CLI_VIDEOS:
+        fail(f"cli.test: {len(taken)} items took the native branch, "
+             f"expected {CLI_VIDEOS}")
     e2e_s = end - factory.first
     factory.first = None
     prof = profile_device(lambda: cli_test.run(config, out + ".profiled"))
@@ -1894,7 +2020,9 @@ def cli_eval_path(card: str) -> dict:
         fail("cli.test's scores disagree with the Evaluator's")
     print(f"the Loader alone ({loader.num_workers} threads): {CLI_VIDEOS} "
           f"videos in {loader_s:.3f} s = {CLI_VIDEOS / loader_s:.3f} "
-          f"videos/s; one thread, ms per video: "
+          f"videos/s on the native branch, {numpy_loader_s:.3f} s = "
+          f"{CLI_VIDEOS / numpy_loader_s:.3f} videos/s on the numpy branch; "
+          f"host ms per video by stage: "
           f"{json.dumps({k: round(v, 2) for k, v in split_ms.items()})} "
           f"(synthetic frames are generated, not decoded); {card}",
           flush=True)
@@ -1921,6 +2049,8 @@ def cli_eval_path(card: str) -> dict:
     shutil.rmtree(root)
     return {"videos_per_s": CLI_VIDEOS / e2e_s, "e2e_s": e2e_s,
             "loader_videos_per_s": CLI_VIDEOS / loader_s,
+            "numpy_loader_videos_per_s": CLI_VIDEOS / numpy_loader_s,
+            "native_vs_numpy_max_abs": item_d,
             "host_ms_per_video": split_ms, "launches": counts,
             "max_abs_score_diff": max(diffs), "device_busy_ms":
             prof["device_ms"], "idle_share": idle,
@@ -2019,6 +2149,39 @@ def cli_train_path(card: str) -> dict:
                      for w, e, l in runs]}
 
 
+def first_line(cmd) -> str:
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    except OSError as e:
+        return f"absent ({e})"
+    return (out.stdout or out.stderr).strip().splitlines()[0]
+
+
+def opencv_check() -> str:
+    """``ls /usr/include/opencv4; ldconfig -p | grep opencv_videoio``."""
+    ls = subprocess.run(["ls", "/usr/include/opencv4"], capture_output=True,
+                        text=True, timeout=60)
+    ld = subprocess.run(["sh", "-c", "ldconfig -p | grep opencv_videoio"],
+                        capture_output=True, text=True, timeout=60)
+    headers = (f"/usr/include/opencv4: {ls.stdout.split()}"
+               if ls.returncode == 0 else "no /usr/include/opencv4")
+    libs = ld.stdout.split() if ld.returncode == 0 else "no libopencv_videoio"
+    return f"{headers}; ldconfig: {libs}"
+
+
+def build_runtime(result: dict) -> None:
+    """Build (or find) the native host runtime; its time or its error in
+    ``result``."""
+    from kvq_tpu_torch import runtime
+
+    t0 = time.time()
+    try:
+        runtime.load()
+    except RuntimeError as e:
+        result["error"] = str(e)
+    result["s"] = time.time() - t0
+
+
 def host_packages() -> str:
     """Which of the host readers the JAX package uses are installed."""
     return ", ".join(
@@ -2044,9 +2207,21 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"host packages: {host_packages()}", flush=True)
+    print(f"host C++ compiler: {first_line(['g++', '--version'])}",
+          flush=True)
+    print(f"OpenCV C++ headers and videoio (for the native decoder, not "
+          f"ported): {opencv_check()}", flush=True)
     t0 = time.time()
+    runtime_build = {}
+    build_thread = threading.Thread(target=build_runtime,
+                                    args=(runtime_build,))
+    build_thread.start()
     reports = build.build_all()
-    print(f"build: {time.time() - t0:.1f} s", flush=True)
+    build_thread.join()
+    if "error" in runtime_build:
+        fail(f"the native runtime did not build: {runtime_build['error']}")
+    print(f"build: {time.time() - t0:.1f} s (CUDA kernels; the native "
+          f"runtime alongside in {runtime_build['s']:.1f} s)", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "ptxas.txt"), "w") as f:
         f.write("\n".join(f"[{k}]\n{v}" for k, v in reports.items()))
@@ -2060,6 +2235,7 @@ def main() -> int:
     gemm = gemm_phase(card)
     k3, k6, k7 = eval_attention_phase(card)
     run = main_path(card)
+    ts2 = tuning_stage_2_path(card)
     swin = swin_path(card)
     train = train_path(card)
     swin_train = swin_train_path(card)
@@ -2149,6 +2325,7 @@ def main() -> int:
                        "ms", "plain_ms", "lib_ms", "bound")},
                    "k3_rows": k3["rows"], "k6_rows": k6["rows"],
                    "k7_rows": k7["rows"], "gemm": gemm, "run": run,
+                   "tuning_stage_2": ts2,
                    "swin": swin, "train": train, "swin_train": swin_train,
                    "cli_eval": cli_eval, "cli_train": cli_train_run,
                    "kernels": kernels}, f,

@@ -8,7 +8,10 @@ Runs the config's ``data.val`` split through the port's dataset, the
 card (``--device cpu`` only when asked), and writes ``video_name,score``
 lines (reference trainer_ddp.py:316-352) and, with ``--csv``, the
 prediction CSV of ``metric_score`` with its header.  The weights are
-``test_load_path``'s, else ``load_path``'s.  :func:`run` takes the config
+``test_load_path``'s, else ``load_path``'s: a reference ``.pth``, a port
+``.pt``, or a file the JAX package wrote (``kvq_tpu.cli.convert``'s
+output, a ``*_finetuned.msgpack``, or a full ``_last_state.msgpack``, of
+which the params and batch_stats are taken), told apart by content.  :func:`run` takes the config
 as a dict, for callers without PyYAML.
 """
 
@@ -23,7 +26,11 @@ from ..train.evaluator import Evaluator
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser("kvq_tpu_torch test")
+    p = argparse.ArgumentParser(
+        "kvq_tpu_torch test",
+        description="The weights are the config's test_load_path (else "
+        "load_path): a torch file (.pth / .pt) or a JAX package msgpack "
+        "file (converted weights, best weights or a full state).")
     p.add_argument("-o", "--opt", required=True, help="YAML config path")
     p.add_argument("-t", "--test_set", default="test", help="ignored")
     p.add_argument("--gpu_id", default="0", help="ignored (torch compat)")

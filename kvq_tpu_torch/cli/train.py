@@ -10,7 +10,10 @@ train Loader's batches, the best-weights files under ``-r``), then for each
 epoch trains on ``train_loader.epoch(e)`` and evaluates the raw and EMA
 weights on the val split (``Trainer.train_eval``), and writes the full
 state to ``{name}_last_state.pt`` under ``-r``; ``--resume_from`` reads
-such a file first.  ``--ddp`` is accepted and runs one process, as the JAX
+such a file first, or the JAX trainer's ``_last_state.msgpack`` (the
+weights, EMA, AdamW moments, schedule, step and best metrics; the port
+still writes its own ``.pt``).  The config's ``load_path`` may name a
+reference ``.pth``, a port ``.pt`` or a JAX msgpack file.  ``--ddp`` is accepted and runs one process, as the JAX
 package does with one device; ``--debug_nans`` turns on autograd's anomaly
 detection.  :func:`run` takes the config as a dict, for callers without
 PyYAML.
@@ -39,7 +42,9 @@ def parse_args(argv=None):
     p.add_argument("--epochs", type=int, default=None, help="override")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--resume_from", default=None,
-                   help="full train state (a _last_state.pt) to resume")
+                   help="full train state to resume: the port's "
+                   "_last_state.pt or the JAX package's _last_state.msgpack "
+                   "(told apart by content)")
     p.add_argument("--ddp", action="store_true",
                    help="accepted for train_ddp.py compatibility; one "
                    "process trains on one card")

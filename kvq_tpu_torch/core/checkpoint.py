@@ -1,10 +1,15 @@
-"""Checkpoints of the port.
+"""Checkpoints of the port, and the JAX package's.
 
 Full train state (counterpart of the JAX trainer's save_full_state /
 load_full_state, kvq_tpu/train/trainer.py:279-332): parameters, optimizer
 and schedule state, EMA parameters, step and best metrics, in one
-``torch.save`` file.  Resume works between runs of the port; the JAX
-package's msgpack checkpoints do not load here.
+``torch.save`` file.  ``Trainer.load`` also resumes a JAX
+``_last_state.msgpack`` (train/trainer.py).
+
+:func:`load_checkpoint` reads either kind and tells them apart by their
+first bytes, not their names (the JAX docs name converted files
+``.ckpt``): a ``torch.save`` file, or a flax msgpack file, which
+core/msgpack_io.py decodes without flax.
 
 Weights for ``load_path`` / ``test_load_path`` (counterpart of
 kvq_tpu/core/checkpoint.py:merge_params and of the reference LSVQ loader's
@@ -12,7 +17,10 @@ table fork, kvq_tpu/core/torch_import.py:convert_swin3d):
 :func:`merge_state_dict` grafts a ``state_dict`` onto a module with the
 reference's ``load_state_dict(strict=False)`` semantics.  The port keeps
 the reference's parameter names, so a reference ``.pth`` ``state_dict``
-loads as it is.
+loads as it is.  A JAX file (``kvq_tpu.cli.convert``'s ``{"params",
+"batch_stats"}``, a ``*_finetuned.msgpack`` best-weights file, or a full
+state, of which only ``params`` and ``batch_stats`` are taken) goes through
+core/from_jax.py first, whole or partial.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ import os
 from typing import Mapping
 
 import torch
+
+from . import msgpack_io
+from .from_jax import map_jax_tree
 
 REL_TABLE = "attn.relative_position_bias_table"
 FRAG_TABLE = "attn.fragment_position_bias_table"
@@ -34,7 +45,18 @@ def save_checkpoint(path: str, state: dict) -> None:
     os.replace(tmp, path)
 
 
+def is_msgpack(path: str) -> bool:
+    """Whether the file at ``path`` is a flax msgpack file (else a
+    ``torch.save`` file)."""
+    with open(path, "rb") as f:
+        return not msgpack_io.is_torch_file(f.read(8))
+
+
 def load_checkpoint(path: str, device="cpu") -> dict:
+    """A ``torch.save`` file's dict, or a JAX msgpack file's tree (numpy
+    arrays under flax names)."""
+    if is_msgpack(path):
+        return msgpack_io.read(path)
     return torch.load(path, map_location=device, weights_only=True)
 
 
@@ -66,15 +88,18 @@ def fork_fragment_tables(sd: Mapping, wanted) -> dict:
 
 @torch.no_grad()
 def merge_state_dict(model: torch.nn.Module, sd: Mapping,
-                     strict: bool = False) -> dict[str, list[str]]:
+                     strict: bool = False, reference: bool = True
+                     ) -> dict[str, list[str]]:
     """Copy the entries of ``sd`` that match ``model``'s ``state_dict`` by
     name and shape into the model (cast to each entry's dtype, on its
-    device), after stripping ``module.`` and forking the fragment tables.
-    Returns the report ``{"missing", "unexpected", "mismatched"}`` (model
-    names ``sd`` lacks; names of ``sd`` the model lacks; names whose shapes
-    differ), which ``strict`` turns into a ``ValueError``."""
+    device), after stripping ``module.`` and forking the fragment tables
+    when ``reference`` (a reference checkpoint's fixes).  Returns the report
+    ``{"missing", "unexpected", "mismatched"}`` (model names ``sd`` lacks;
+    names of ``sd`` the model lacks; names whose shapes differ), which
+    ``strict`` turns into a ``ValueError``."""
     own = model.state_dict()
-    sd = fork_fragment_tables(strip_module_prefix(sd), own)
+    if reference:
+        sd = fork_fragment_tables(strip_module_prefix(sd), own)
     unexpected, mismatched = [], []
     for name, value in sd.items():
         if name not in own:
@@ -91,9 +116,26 @@ def merge_state_dict(model: torch.nn.Module, sd: Mapping,
             "mismatched": mismatched}
 
 
+def merge_jax_weights(model: torch.nn.Module, params: Mapping,
+                      batch_stats: Mapping | None = None
+                      ) -> dict[str, list[str]]:
+    """Graft JAX ``params`` / ``batch_stats`` trees (whole or partial) onto
+    ``model``; the report of :func:`merge_state_dict`, with the JAX leaves
+    that map to no port name among ``unexpected``."""
+    sd, unread = map_jax_tree(params, batch_stats)
+    report = merge_state_dict(model, sd, reference=False)
+    report["unexpected"] += unread
+    return report
+
+
 def load_weights(model: torch.nn.Module, path: str) -> dict[str, list[str]]:
     """Merge the weights of the file at ``path`` into ``model`` and print
     the report's counts (as the JAX trainer prints them)."""
-    report = merge_state_dict(model, weights_of(load_checkpoint(path)))
+    loaded = load_checkpoint(path)
+    if is_msgpack(path):
+        report = merge_jax_weights(model, loaded.get("params", loaded),
+                                   loaded.get("batch_stats"))
+    else:
+        report = merge_state_dict(model, weights_of(loaded))
     print("loaded", path, {k: len(v) for k, v in report.items()})
     return report

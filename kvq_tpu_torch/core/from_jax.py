@@ -1,10 +1,10 @@
 """Weights carried across from the JAX package.
 
 :func:`state_dict_from_jax` takes the JAX package's ``params`` and
-``batch_stats`` trees of a ``VQANetwork`` (nested dicts of numpy arrays
-under flax names: ``<key>_backbone/...``, ``<key>_head/...``) for the KSVQE
-key and the Swin-T-3D keys, and returns the port's ``state_dict``, whose
-names are the PyTorch reference checkpoint's — the names
+``batch_stats`` trees of a ``VQANetwork`` (nested dicts of arrays under
+flax names: ``<key>_backbone/...``, ``<key>_head/...``) for the KSVQE key
+and the Swin-T-3D keys, and returns the port's ``state_dict``, whose names
+are the PyTorch reference checkpoint's — the names
 ``kvq_tpu/core/torch_import.py`` reads (``convert_ksvqe_full``;
 ``convert_swin3d`` for a Swin trunk, whose stages the JAX tree keeps under
 ``trunk``).  It is that converter's inverse:
@@ -13,6 +13,14 @@ names are the PyTorch reference checkpoint's — the names
   - Conv kernel HWIO / DHWIO      -> OIHW / OIDHW
   - LayerNorm scale/bias          -> weight/bias
   - BatchNorm scale/bias + stats  -> weight/bias, running_mean/var
+
+A tree may be partial: what it lacks is left out of the result, and the
+leaves that map to no port name are returned by :func:`map_jax_tree`,
+whose report ``load_weights`` prints as ``kvq_tpu.core.checkpoint.
+merge_params`` does.  Each layout change is elementwise-safe (transpose,
+reshape), so an optimizer moment tree (optax's ``mu``/``nu``, shaped like
+``params``) maps the same way; :func:`adamw_state_from_jax` does that for
+the JAX trainer's optax state.
 """
 
 from __future__ import annotations
@@ -23,55 +31,100 @@ import numpy as np
 import torch
 
 
-def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+def _np(a) -> np.ndarray:
+    """A leaf as float32 numpy (a bfloat16 leaf is a torch tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.array(a, dtype=np.float32)
+
+
+class _Tree:
+    """A read-only view of a JAX (sub)tree that notes the path of each leaf
+    read into ``used``.  A missing key gives an empty tree, so a partial
+    tree maps what it has; an empty map where a leaf belongs (optax's
+    masked node) is not a leaf."""
+
+    def __init__(self, node, path: tuple = (), used: set | None = None):
+        self.node = node if isinstance(node, Mapping) else {}
+        self.path = path
+        self.used = set() if used is None else used
+
+    def __getitem__(self, key):
+        value = self.node.get(key)
+        if isinstance(value, Mapping) or value is None:
+            return _Tree(value, self.path + (key,), self.used)
+        self.used.add(self.path + (key,))
+        return value
+
+    def __contains__(self, key) -> bool:
+        return key in self.node
+
+    def __iter__(self):
+        return iter(self.node)
+
+
+def _leaves(tree, path=()):
+    """The ``/``-joined paths of every leaf (non-empty-map entry) of a
+    nested map."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path
 
 
 class _Out:
     def __init__(self):
         self.sd: dict[str, torch.Tensor] = {}
 
-    def put(self, name: str, value) -> None:
-        self.sd[name] = value if isinstance(value, torch.Tensor) else _t(value)
+    def put(self, name: str, value, layout=None) -> None:
+        """``sd[name] = layout(value)``; nothing when ``value`` is absent."""
+        if isinstance(value, _Tree):
+            return
+        a = _np(value)
+        self.sd[name] = torch.from_numpy(
+            np.ascontiguousarray(layout(a) if layout else a))
 
-    def dense(self, name: str, p: Mapping, bias: bool = True) -> None:
-        self.put(f"{name}.weight", np.asarray(p["kernel"]).T)
+    def dense(self, name: str, p, bias: bool = True) -> None:
+        self.put(f"{name}.weight", p["kernel"], np.transpose)
         if bias and "bias" in p:
             self.put(f"{name}.bias", p["bias"])
 
-    def conv1x1(self, name: str, p: Mapping, nd: int) -> None:
-        k = np.asarray(p["kernel"]).T  # (out, in)
-        self.put(f"{name}.weight", k.reshape(k.shape + (1,) * nd))
+    def conv1x1(self, name: str, p, nd: int) -> None:
+        self.put(f"{name}.weight", p["kernel"],
+                 lambda k: k.T.reshape(k.T.shape + (1,) * nd))  # (out, in)
         self.put(f"{name}.bias", p["bias"])
 
-    def ln(self, name: str, p: Mapping) -> None:
+    def ln(self, name: str, p) -> None:
         self.put(f"{name}.weight", p["scale"])
         self.put(f"{name}.bias", p["bias"])
 
-    def bn(self, name: str, p: Mapping, s: Mapping) -> None:
+    def bn(self, name: str, p, s) -> None:
         self.put(f"{name}.weight", p["scale"])
         self.put(f"{name}.bias", p["bias"])
         self.put(f"{name}.running_mean", s["mean"])
         self.put(f"{name}.running_var", s["var"])
-        self.put(f"{name}.num_batches_tracked", torch.tensor(0))
+        if f"{name}.running_mean" in self.sd:
+            self.sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
 
-    def adapter(self, name: str, p: Mapping) -> None:
+    def adapter(self, name: str, p) -> None:
         self.dense(f"{name}.0", p["fc1"])
         self.dense(f"{name}.2", p["fc2"])
 
 
-def _indexed(tree: Mapping, prefix: str) -> list[int]:
+def _indexed(tree, prefix: str) -> list[int]:
     return sorted(int(k[len(prefix):]) for k in tree
                   if k.startswith(prefix) and k[len(prefix):].isdigit())
 
 
-def _swin(o: _Out, pre: str, p: Mapping) -> None:
-    k = np.asarray(p["patch_embed"]["proj"]["kernel"])  # (pt, ph, pw, C, F)
-    o.put(f"{pre}patch_embed.proj.weight", k.transpose(4, 3, 0, 1, 2))
+def _swin(o: _Out, pre: str, p: _Tree, layers: _Tree) -> None:
+    """Patch embed and final norm from ``p``, the stages from ``layers``."""
+    o.put(f"{pre}patch_embed.proj.weight", p["patch_embed"]["proj"]["kernel"],
+          lambda k: k.transpose(4, 3, 0, 1, 2))  # (pt, ph, pw, C, F)
     o.put(f"{pre}patch_embed.proj.bias", p["patch_embed"]["proj"]["bias"])
     o.ln(f"{pre}patch_embed.norm", p["patch_embed"]["norm"])
-    for li in _indexed(p, "layers_"):
-        lp = p[f"layers_{li}"]
+    for li in _indexed(layers, "layers_"):
+        lp = layers[f"layers_{li}"]
         for b in _indexed(lp, "blocks_"):
             bp = lp[f"blocks_{b}"]
             dst = f"{pre}layers.{li}.blocks.{b}"
@@ -92,18 +145,18 @@ def _swin(o: _Out, pre: str, p: Mapping) -> None:
     o.ln(f"{pre}norm", p["norm"])
 
 
-def _clip(o: _Out, pre: str, p: Mapping) -> None:
+def _clip(o: _Out, pre: str, p: _Tree) -> None:
     v = f"{pre}visual."
-    o.put(f"{v}conv1.weight",
-          np.asarray(p["conv1"]["kernel"]).transpose(3, 2, 0, 1))
+    o.put(f"{v}conv1.weight", p["conv1"]["kernel"],
+          lambda k: k.transpose(3, 2, 0, 1))
     o.put(f"{v}class_embedding", p["class_embedding"])
     o.put(f"{v}positional_embedding", p["positional_embedding"])
     o.ln(f"{v}ln_pre", p["ln_pre"])
     for i in _indexed(p, "resblocks_"):
         bp = p[f"resblocks_{i}"]
         dst = f"{v}transformer.resblocks.{i}"
-        o.put(f"{dst}.attn.in_proj_weight",
-              np.asarray(bp["attn"]["in_proj"]["kernel"]).T)
+        o.put(f"{dst}.attn.in_proj_weight", bp["attn"]["in_proj"]["kernel"],
+              np.transpose)
         o.put(f"{dst}.attn.in_proj_bias", bp["attn"]["in_proj"]["bias"])
         o.dense(f"{dst}.attn.out_proj", bp["attn"]["out_proj"])
         o.ln(f"{dst}.ln_1", bp["ln_1"])
@@ -114,12 +167,12 @@ def _clip(o: _Out, pre: str, p: Mapping) -> None:
         o.adapter(f"{pre}adapter_layer.{i}", p[f"adapter_layer_{i}"])
 
 
-def _contrique(o: _Out, pre: str, p: Mapping, s: Mapping) -> None:
+def _contrique(o: _Out, pre: str, p: _Tree, s: _Tree) -> None:
     enc, encs = p["encoder"], s["encoder"]
     e = f"{pre}encoder."
 
     def conv(name, cp):
-        o.put(name, np.asarray(cp["kernel"]).transpose(3, 2, 0, 1))
+        o.put(name, cp["kernel"], lambda k: k.transpose(3, 2, 0, 1))
 
     conv(f"{e}0.weight", enc["stem"]["conv1"])
     o.bn(f"{e}1", enc["stem"]["bn1"], encs["stem"]["bn1"])
@@ -142,8 +195,8 @@ def _contrique(o: _Out, pre: str, p: Mapping, s: Mapping) -> None:
     o.bn(f"{pre}projector.4", p["projector_bn2"], s["projector_bn2"])
 
 
-def _ksvqe(o: _Out, pre: str, p: Mapping, s: Mapping) -> None:
-    _swin(o, pre, p)
+def _ksvqe(o: _Out, pre: str, p: _Tree, s: _Tree) -> None:
+    _swin(o, pre, p, p)
     _clip(o, f"{pre}CLIP_tool.", p["CLIP_tool"])
     _contrique(o, f"{pre}distortion_tool.", p["distortion_tool"],
                s["distortion_tool"])
@@ -167,22 +220,82 @@ def _ksvqe(o: _Out, pre: str, p: Mapping, s: Mapping) -> None:
     o.put(f"{pre}a2", p["a2"])
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None = None
-                        ) -> dict[str, torch.Tensor]:
-    """JAX VQANetwork trees (KSVQE and Swin-T-3D keys) -> the port's
-    state_dict."""
-    batch_stats = batch_stats or {}
+def map_jax_tree(params: Mapping, batch_stats: Mapping | None = None
+                 ) -> tuple[dict[str, torch.Tensor], list[str]]:
+    """JAX VQANetwork trees (KSVQE and Swin-T-3D keys, whole or partial) ->
+    (the port's state_dict of what they hold, the ``/``-joined paths of the
+    leaves that map to no port name).  A backbone of a key that is not
+    ported raises ``NotImplementedError``."""
+    used: set = set()
+    p, s = _Tree(params, (), used), _Tree(batch_stats, ("batch_stats",), used)
     o = _Out()
-    for name, tree in params.items():
+    for name in p:
         key, _, part = name.rpartition("_")
+        tree = p[name]
         if part == "head":
             o.conv1x1(f"{name}.fc_hid", tree["fc_hid"], 3)
             o.conv1x1(f"{name}.fc_last", tree["fc_last"], 3)
         elif name == "KSVQE_backbone":
-            _ksvqe(o, f"{name}.", tree, batch_stats.get(name, {}))
+            _ksvqe(o, f"{name}.", tree, s[name])
         elif part == "backbone" and "trunk" in tree:  # a Swin-T-3D key
-            stages = {k: v for k, v in tree.items() if k != "trunk"}
-            _swin(o, f"{name}.", {**stages, **tree["trunk"]})
-        else:
+            _swin(o, f"{name}.", tree, tree["trunk"])
+        elif part == "backbone":
             raise NotImplementedError(f"model key {key!r} is not ported yet")
-    return o.sd
+    unread = [path for tree, pre in ((params, ()),
+                                     (batch_stats or {}, ("batch_stats",)))
+              for path in _leaves(tree, pre) if path not in used]
+    return o.sd, ["/".join(path) for path in unread]
+
+
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """JAX VQANetwork trees (KSVQE and Swin-T-3D keys) -> the port's
+    state_dict."""
+    return map_jax_tree(params, batch_stats)[0]
+
+
+def _expect(node, keys: set, where: str):
+    if not isinstance(node, Mapping) or set(node) != keys:
+        got = sorted(node) if isinstance(node, Mapping) else type(node).__name__
+        raise ValueError(f"opt_state{where}: expected the keys "
+                         f"{sorted(keys)}, got {got}")
+    return node
+
+
+def adamw_state_from_jax(opt_state: Mapping, frozen: bool, scaled: bool
+                         ) -> tuple[int, dict, dict]:
+    """The serialized optax state of the JAX trainer's optimizer
+    (kvq_tpu/train/optim.py:69-111) -> ``(count, exp_avg, exp_avg_sq)``, the
+    moments as state_dicts under the port's parameter names.
+
+    The chain is ``adamw`` alone, or ``chain(masked(adamw),
+    masked(set_to_zero))`` under the frozen mask (``frozen``), with
+    ``masked(scale)`` appended when ``backbone_lr_mult != 1`` (``scaled``).
+    ``adamw`` is ``(ScaleByAdamState(count, mu, nu), EmptyState,
+    ScaleByScheduleState(count))``; the leaves the mask leaves out are
+    empty maps and map to nothing.  A state of another shape raises
+    ``ValueError``."""
+    if frozen or scaled:
+        n = 1 + frozen + scaled
+        chain = _expect(opt_state, {str(i) for i in range(n)}, "")
+        adamw = chain["0"]
+        if frozen:
+            adamw = _expect(adamw, {"inner_state"}, "/0")["inner_state"]
+        for i in range(1, n):
+            masked = _expect(chain[str(i)], {"inner_state"}, f"/{i}")
+            _expect(masked["inner_state"], set(), f"/{i}/inner_state")
+    else:
+        adamw = opt_state
+    _expect(adamw, {"0", "1", "2"}, " (adamw)")
+    adam = _expect(adamw["0"], {"count", "mu", "nu"}, " (adamw/0)")
+    _expect(adamw["1"], set(), " (adamw/1)")
+    sched = _expect(adamw["2"], {"count"}, " (adamw/2)")
+    count = int(np.asarray(adam["count"]))
+    if int(np.asarray(sched["count"])) != count:
+        raise ValueError("opt_state: the adam and schedule counts differ")
+    mu, unread_mu = map_jax_tree(adam["mu"])
+    nu, unread_nu = map_jax_tree(adam["nu"])
+    if unread_mu or unread_nu or mu.keys() != nu.keys():
+        raise ValueError(f"opt_state: moments that map to no parameter: "
+                         f"{(unread_mu + unread_nu)[:5]}")
+    return count, mu, nu

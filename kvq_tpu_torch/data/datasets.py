@@ -15,8 +15,14 @@ Reference-name aliases are registered so reference YAML configs resolve
 unchanged (``data.train.type: ViewDecompositionDataset_KVQ``).  Each sample
 draws from ``default_rng((seed, epoch, index))``; ``opt["source_factory"]``
 (path -> video source) replaces the decoder, e.g. with synthetic videos.
-The JAX package's native C++ fragment/resize branch is not ported: this is
-its numpy branch.
+
+KVQDataset makes its two views in the native runtime (runtime/, C++) where
+the JAX package does (kvq_tpu/data/datasets.py:41-79): uint8 frames, no
+upsample of a video smaller than the mosaic, and a clip length that the
+fragments' ``aligned`` divides.  It draws the fragment jitter from the
+sample's generator as the numpy branch does, so frame indices and
+fragments stay the same.  The numpy branch is the plain version, taken
+elsewhere and, with the module attribute ``NATIVE`` false, everywhere.
 """
 
 from __future__ import annotations
@@ -30,14 +36,40 @@ import numpy as np
 from ..core.registry import DATASETS
 from . import views as V
 from .decode import SyntheticVideoSource, decode_views, open_video
-from .fragments import get_spatial_fragments, s2d_pack
+from .fragments import fragment_index_maps, get_spatial_fragments, s2d_pack
 from .samplers import make_sampler
+
+NATIVE = True  # the native branch where it applies; false: numpy only
 
 
 def _filter_view_opts(sopt: dict) -> dict:
     """Drop non-view keys before passing a sample_types entry to view fns."""
     drop = {"clip_len", "frame_interval", "num_clips", "t_frag", "phase"}
     return {k: v for k, v in sopt.items() if k not in drop}
+
+
+def _native_views(raw: np.ndarray, sopt: dict, rng):
+    """(fragment, resize_video) of the KVQ sample, float32, from the native
+    runtime, or None where the numpy branch makes them (kvq_tpu/data/
+    datasets.py:41-79's conditions)."""
+    if not NATIVE or raw.dtype != np.uint8:
+        return None
+    fh, fw = sopt.get("fragments_h", 7), sopt.get("fragments_w", 7)
+    sh, sw = sopt.get("fsize_h", 32), sopt.get("fsize_w", 32)
+    aligned = 1 if raw.shape[0] == 1 else sopt.get("aligned", 32)
+    T, H, W = raw.shape[:3]
+    if min(H / (fh * sh), W / (fw * sw)) < 1 or T % aligned != 0:
+        return None  # the upsample fallback and its checks stay in numpy
+    from .. import runtime
+
+    ymap, xmap = fragment_index_maps(H, W, T, fh, fw, sh, sw, aligned,
+                                     rng=rng)
+    fragment = runtime.fragment_mosaic_normalize(
+        raw, ymap, xmap, aligned, V.IMAGENET_255_MEAN, V.IMAGENET_255_STD)
+    resize = runtime.resize_normalize(
+        raw, sopt.get("size_h", 224), sopt.get("size_w", 224), V.CLIP_MEAN,
+        V.CLIP_STD, div255=True)
+    return fragment, resize
 
 
 class _ViewDatasetBase:
@@ -107,10 +139,14 @@ class KVQDataset(_ViewDatasetBase):
         data: dict[str, Any] = {}
         for stype, raw in videos.items():
             sopt = _filter_view_opts(self.sample_types[stype])
-            frag = V.get_single_view(raw, stype, rng=rng, **sopt)
-            resize = V.get_resized_video(raw, **sopt)
-            data["fragment"] = V.normalize(frag, "imagenet_255")
-            data["resize_video"] = V.normalize(resize, "clip")
+            native = _native_views(raw, sopt, rng)
+            if native is not None:
+                data["fragment"], data["resize_video"] = native
+            else:
+                frag = V.get_single_view(raw, stype, rng=rng, **sopt)
+                resize = V.get_resized_video(raw, **sopt)
+                data["fragment"] = V.normalize(frag, "imagenet_255")
+                data["resize_video"] = V.normalize(resize, "clip")
             # ``ori_fragment`` (the un-normalised mosaic of the reference
             # batch, fusion_datasets.py:1028, which nothing reads) only with
             # ``opt["return_ori_fragment"] = True``.

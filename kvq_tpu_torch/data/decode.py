@@ -6,8 +6,11 @@ kvq_tpu/data/decode.py:27-290).
   - :class:`OpenCVVideoSource`: cv2 decode with keyframe seek + grab-scan
     and the reference's short-video padding; cv2 is imported when a file is
     opened, never when this module is;
-  - :func:`open_video`: a source as it is, else a file through OpenCV
-    (the JAX package's native C++ decoder is not ported);
+  - :func:`open_video`: a source as it is, else a file through OpenCV's
+    Python binding, which computes the frames the JAX package's native
+    decoder (kvq_tpu/runtime/kvq_runtime.cpp:40-230) computes; that decoder
+    links OpenCV's C++ videoio and is not ported (the port's runtime/
+    makes the views, not the frames);
   - :func:`decode_views`: sample each view's frame indices and decode each
     unique frame once.
 """

@@ -27,7 +27,8 @@ All randomness comes from one ``torch.Generator`` per trainer (seeded with
 and the head's dropout, drawn in that order on every route, with or
 without remat, so one seed gives the kernel path and the plain path the
 same draws.  ``save`` / ``load`` keep the full state (core/checkpoint.py),
-generator included.
+generator included; ``load`` also resumes the JAX trainer's
+``_last_state.msgpack``.
 """
 
 from __future__ import annotations
@@ -35,12 +36,20 @@ from __future__ import annotations
 import os
 from typing import Iterable
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..core.checkpoint import load_checkpoint, load_weights, save_checkpoint
+from ..core.checkpoint import (
+    is_msgpack,
+    load_checkpoint,
+    load_weights,
+    merge_jax_weights,
+    save_checkpoint,
+)
 from ..core.config import model_keys, normalize_config
 from ..core.device import resolve_device
+from ..core.from_jax import adamw_state_from_jax, map_jax_tree
 from ..core.metrics import VQAMetrics
 from ..data.pipeline import (
     prefetch_to_device,
@@ -86,6 +95,7 @@ class Trainer:
         opt = cfg.get("optimizer") or {}
         epochs = float(cfg.get("num_epochs", 1)) + float(
             cfg.get("l_num_epochs", 0))
+        self.backbone_lr_mult = float(opt.get("backbone_lr_mult", 1.0))
         self.optimizer, self.schedule = build_optimizer(
             self.model,
             lr=float(opt.get("lr", 3e-5)),
@@ -93,7 +103,7 @@ class Trainer:
             warmup_iters=int(float(cfg.get("warmup_epochs", 0))
                              * steps_per_epoch),
             max_iters=int(epochs * steps_per_epoch),
-            backbone_lr_mult=float(opt.get("backbone_lr_mult", 1.0)),
+            backbone_lr_mult=self.backbone_lr_mult,
         )
         self.contra_w = float(cfg.get("contra_loss_weight", 0.3))
         self.rank_w = float(cfg.get("rank_loss_weight", 0.0))
@@ -233,7 +243,12 @@ class Trainer:
         })
 
     def load(self, path: str) -> None:
+        """Resume a full state: the port's own file (:meth:`save`), or the
+        JAX trainer's ``_last_state.msgpack`` (:meth:`load_jax_state`)."""
         state = load_checkpoint(path)
+        if is_msgpack(path):
+            self.load_jax_state(state, path)
+            return
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.schedule.load_state_dict(state["schedule"])
@@ -245,3 +260,73 @@ class Trainer:
         self.best_ema = tuple(state["best_ema"])
         self.gen.set_state(state["generator"])
         self._frozen = None
+
+    def load_jax_state(self, state: dict, path: str = "<state>") -> None:
+        """Resume the JAX trainer's full state (its ``save_full_state``,
+        kvq_tpu/train/trainer.py:279-332): ``params`` and ``batch_stats``
+        merged as it merges them, ``ema_params`` into the EMA, the AdamW
+        moments into each trainable parameter's ``exp_avg`` /
+        ``exp_avg_sq``, the optax count as each parameter's ``step`` and
+        the schedule's, then ``step``, ``best`` and ``best_ema``.  An
+        ``opt_state`` that does not match this trainer's optimizer (its
+        frozen mask, ``backbone_lr_mult`` and parameters) raises
+        ``ValueError`` before anything is loaded.  JAX's RNG state has no
+        counterpart here: the generator keeps its seed."""
+        moments = None
+        if "opt_state" in state:
+            try:
+                moments = self._adamw_state(state["opt_state"])
+            except ValueError as e:
+                raise ValueError(
+                    f"checkpoint opt_state at {path!r} does not match the "
+                    f"optimizer of this config: {e}") from e
+        report = merge_jax_weights(self.model, state["params"],
+                                   state.get("batch_stats"))
+        print("loaded", path, {k: len(v) for k, v in report.items()})
+        if moments is not None:
+            count, opt_state = moments
+            self.optimizer.load_state_dict(opt_state)
+            sched = self.schedule
+            lrs = [base * fn(count)
+                   for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
+            sched.load_state_dict({**sched.state_dict(), "last_epoch": count,
+                                   "_last_lr": lrs})
+            for group, lr in zip(self.optimizer.param_groups, lrs):
+                group["lr"] = lr
+        if self.use_ema and state.get("ema_params"):
+            ema, _ = map_jax_tree(state["ema_params"])
+            names = [n for n, _ in self.model.named_parameters()]
+            with torch.no_grad():
+                for e, n in zip(self.ema, names):
+                    if n in ema:
+                        e.copy_(ema[n])
+        self.step = int(np.asarray(state.get("step", 0)))
+        for key in ("best", "best_ema"):
+            if key in state:
+                setattr(self, key,
+                        tuple(float(x) for x in np.asarray(state[key])))
+        self._frozen = None
+
+    def _adamw_state(self, opt_state: dict) -> tuple[int, dict]:
+        """(optax count, an ``optimizer.state_dict()`` holding the JAX
+        moments) for this trainer's AdamW."""
+        count, mu, nu = adamw_state_from_jax(
+            opt_state, frozen=self.is_ksvqe, scaled=self.backbone_lr_mult != 1)
+        name_of = {id(p): n for n, p in self.model.named_parameters()}
+        order = [p for g in self.optimizer.param_groups for p in g["params"]]
+        want = {name_of[id(p)] for p in order}
+        if set(mu) != want:
+            raise ValueError(
+                f"moments for {len(mu)} parameters, {len(want)} trainable; "
+                f"not trained here: {sorted(set(mu) - want)[:3]}, without "
+                f"moments: {sorted(want - set(mu))[:3]}")
+        sd = self.optimizer.state_dict()
+        sd["state"] = {}
+        for i, p in enumerate(order):
+            n = name_of[id(p)]
+            if mu[n].shape != p.shape:
+                raise ValueError(f"moment of {n}: shape {tuple(mu[n].shape)}"
+                                 f", parameter {tuple(p.shape)}")
+            sd["state"][i] = {"step": torch.tensor(float(count)),
+                              "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+        return count, sd

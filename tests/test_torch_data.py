@@ -8,8 +8,8 @@ frames and, on uint8, within 1 LSB on at most 2 % of pixels (OpenCV's
 11-bit fixed point against cv2's IPP layer).  The upsample fallback of the
 mosaic is within 1e-4 of the JAX package's cv2 branch on float32 frames;
 ``resize_video`` of KVQDataset within 1/(255 * min CLIP std) = 0.0152.
-The JAX package's native C++ runtime is switched off: its numpy/cv2 path
-is the reference here.
+Both packages' native C++ runtimes are switched off: the JAX package's
+numpy/cv2 path is the reference here for the port's numpy path.
 """
 
 import itertools
@@ -43,7 +43,10 @@ CLIP_LSB = 1.0 / (255.0 * float(PV.CLIP_STD.min()))  # 0.0152
 
 @pytest.fixture(autouse=True)
 def no_native_runtime(monkeypatch):
+    """Both packages' numpy branches; the native ones are held in
+    tests/test_torch_runtime.py."""
     monkeypatch.setattr(kvq_tpu.runtime, "available", lambda: False)
+    monkeypatch.setattr(PD, "NATIVE", False)
 
 
 def _video(shape, seed=0, dtype=np.uint8):

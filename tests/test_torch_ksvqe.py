@@ -36,20 +36,33 @@ def _packed(batch):
                                           for f in batch["fragment"]]))
 
 
-@pytest.fixture(scope="module")
-def jax_weights():
-    cfg = _tiny_ksvqe_config()
+# tuning_stage 2, as config/Kwai_KSVQE_test.yml ships it (a2 2) and as
+# config/Kwai_KSVQE_nopretrain.yml (a2 0): the CDM modulates stages 2-3 of
+# four, the last at the clamped channel rule (KSVQE_model.py:1160-1163)
+TS2 = dict(tuning_stage=2, depths=(1, 1, 1, 1), num_heads=(2, 2, 2, 2))
+
+
+def jax_weights_at(**changes):
+    """Seeded JAX weights of the tiny KSVQE with ``changes`` to its config:
+    (config, backbone variables, head variables, params, batch_stats)."""
+    cfg = dataclasses.replace(_tiny_ksvqe_config(), **changes)
     model = JKSVQE(config=cfg, dtype=jnp.float32)
     jb = {k: jnp.asarray(v) for k, v in _batch().items()}
     v = jax.jit(lambda b: model.init(
         {"params": jax.random.key(0), "qrs": jax.random.key(1)}, b,
         train=False))(jb)
-    head = JVQAHead(hidden_channels=16)
-    hv = head.init(jax.random.key(2), jnp.zeros((1, 4, 3, 3, 32)))
+    width = cfg.embed_dim * 2 ** (len(cfg.depths) - 1)
+    hv = JVQAHead(hidden_channels=16).init(jax.random.key(2),
+                                           jnp.zeros((1, 4, 3, 3, width)))
     params = {"KSVQE_backbone": jax.tree.map(np.asarray, v["params"]),
               "KSVQE_head": jax.tree.map(np.asarray, hv["params"])}
     stats = {"KSVQE_backbone": jax.tree.map(np.asarray, v["batch_stats"])}
     return cfg, v, hv, params, stats
+
+
+@pytest.fixture(scope="module")
+def jax_weights():
+    return jax_weights_at()
 
 
 def _jax_scores(cfg, v, hv, batch):
@@ -86,6 +99,31 @@ def test_tiny_ksvqe_score_and_loss_match_jax(jax_weights, use_pallas, s2d):
     finally:
         WA.ALLOW_CPU_PALLAS, WA.EVAL_INTERPRET = flags
     net = _port(params, stats, use_pallas=use_pallas, s2d_input=s2d)
+    with torch.no_grad():
+        scores, loss = net({k: torch.from_numpy(x) for k, x in batch.items()})
+    np.testing.assert_allclose(scores[0].numpy().ravel(), ref_s, atol=1e-5)
+    np.testing.assert_allclose(float(loss), ref_l, rtol=1e-5)
+
+
+@pytest.mark.parametrize("a2", [2.0, 0.0])
+def test_tiny_ksvqe_tuning_stage_2_score_matches_jax(a2):
+    """Eval at tuning_stage 2 on the shipped route (s2d input, kernels; the
+    JAX side's in interpret mode): the CDM modules carried across by their
+    index m = stage - tuning_stage, the score within atol 1e-5."""
+    cfg, v, hv, params, stats = jax_weights_at(a2=a2, **TS2)
+    assert "semantic_adapter_1" in params["KSVQE_backbone"]
+    assert "semantic_adapter_2" not in params["KSVQE_backbone"]
+    batch = _packed(_batch(B=2, T=8, seed=3))
+    flags = (WA.ALLOW_CPU_PALLAS, WA.EVAL_INTERPRET)
+    WA.ALLOW_CPU_PALLAS = WA.EVAL_INTERPRET = True
+    try:
+        ref_s, ref_l = _jax_scores(
+            dataclasses.replace(cfg, use_pallas=True, s2d_input=True), v, hv,
+            batch)
+    finally:
+        WA.ALLOW_CPU_PALLAS, WA.EVAL_INTERPRET = flags
+    net = _port(params, stats, use_pallas=True, s2d_input=True, a2=a2, **TS2)
+    assert len(net.KSVQE_backbone.semantic_adapter) == 2
     with torch.no_grad():
         scores, loss = net({k: torch.from_numpy(x) for k, x in batch.items()})
     np.testing.assert_allclose(scores[0].numpy().ravel(), ref_s, atol=1e-5)

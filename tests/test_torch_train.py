@@ -23,7 +23,6 @@ import jax
 import jax.numpy as jnp
 
 import kvq_tpu.ops.window_attention as WA
-from __graft_entry__ import _tiny_ksvqe_config
 from kvq_tpu.core.torch_import import convert_ksvqe_full
 from kvq_tpu.nn.heads import VQAHead as JVQAHead
 from kvq_tpu.nn.ksvqe import KSVQE as JKSVQE
@@ -34,6 +33,7 @@ from kvq_tpu_torch.models.vqa_network import VQANetwork
 from kvq_tpu_torch.ops import train_attention as TTA
 from kvq_tpu_torch.train import losses as L
 
+from test_torch_ksvqe import TS2, jax_weights_at
 from test_torch_modules import _batch, _block_pair, _t, tiny_config
 
 
@@ -53,17 +53,7 @@ def _packed_batch(B=4, T=8, seed=3):
 
 @pytest.fixture(scope="module")
 def weights():
-    cfg = _tiny_ksvqe_config()
-    model = JKSVQE(config=cfg, dtype=jnp.float32)
-    jb = {k: jnp.asarray(v) for k, v in _batch().items()}
-    v = jax.jit(lambda b: model.init(
-        {"params": jax.random.key(0), "qrs": jax.random.key(1)}, b,
-        train=False))(jb)
-    hv = JVQAHead(hidden_channels=16).init(jax.random.key(2),
-                                           jnp.zeros((1, 4, 3, 3, 32)))
-    params = {"KSVQE_backbone": jax.tree.map(np.asarray, v["params"]),
-              "KSVQE_head": jax.tree.map(np.asarray, hv["params"])}
-    stats = {"KSVQE_backbone": jax.tree.map(np.asarray, v["batch_stats"])}
+    cfg, _, _, params, stats = jax_weights_at()
     return cfg, params, stats
 
 
@@ -85,14 +75,11 @@ def _jax_loss_and_grads(cfg, params, stats, batch):
     return float(loss), grads
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_tiny_ksvqe_train_route_loss_and_grads_match_jax(weights,
-                                                         use_pallas):
+def _check_train_route(cfg, params, stats, use_pallas, **backbone):
     """One train forward + backward of the tiny KSVQE (s2d input, DropPath
-    0, QRS sigma 0 so both sides are deterministic, head in eval).  With
-    use_pallas the JAX side runs its train kernels (K4, K5) in interpret
-    mode and the port its kernel route (plain versions on the CPU)."""
-    cfg, params, stats = weights
+    0, QRS sigma 0 so both sides are deterministic, head in eval) on both
+    sides: the loss and every parameter gradient, mapped back through the
+    reference converter."""
     batch = _packed_batch()
     jcfg = dataclasses.replace(cfg, s2d_input=True, drop_path_rate=0.0,
                                sigma=0.0, use_pallas=use_pallas)
@@ -104,7 +91,7 @@ def test_tiny_ksvqe_train_route_loss_and_grads_match_jax(weights,
         WA.ALLOW_CPU_PALLAS, WA.TRAIN_INTERPRET = flags
 
     net = VQANetwork(tiny_config(use_pallas=use_pallas, s2d_input=True,
-                                 drop_path_rate=0.0, sigma=0.0))
+                                 drop_path_rate=0.0, sigma=0.0, **backbone))
     net.load_state_dict(state_dict_from_jax(params, stats), strict=True)
     net.train()
     net.KSVQE_head.eval()
@@ -130,6 +117,26 @@ def test_tiny_ksvqe_train_route_loss_and_grads_match_jax(weights,
     assert len(flat_ref) == len(flat_got)
     for path, want in flat_ref:
         _grad_close(flat_got[path], want, jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_tiny_ksvqe_train_route_loss_and_grads_match_jax(weights,
+                                                         use_pallas):
+    """The tiny KSVQE at tuning_stage 1.  With use_pallas the JAX side runs
+    its train kernels (K4, K5) in interpret mode and the port its kernel
+    route (plain versions on the CPU)."""
+    cfg, params, stats = weights
+    _check_train_route(cfg, params, stats, use_pallas)
+
+
+@pytest.mark.parametrize("a2", [2.0, 0.0])
+def test_tiny_ksvqe_tuning_stage_2_train_loss_and_grads_match_jax(a2):
+    """At tuning_stage 2 (config/Kwai_KSVQE_test.yml, a2 2;
+    config/Kwai_KSVQE_nopretrain.yml, a2 0), on the kernel route: the CDM
+    of stages 2-3 carried across by its index, its gradients held as
+    above (at a2 0 the semantic branch's are zero on both sides)."""
+    cfg, _, _, params, stats = jax_weights_at(a2=a2, **TS2)
+    _check_train_route(cfg, params, stats, True, a2=a2, **TS2)
 
 
 def _train_block_pair(dims, use_frag):
