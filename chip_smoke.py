@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Runs the port's main paths — KSVQE eval scoring, Swin-T-3D eval scoring
 (the swin_tiny_grpb model key), KSVQE training and swin_tiny_grpb training,
-then KSVQE scoring and training through the CLIs — on one NVIDIA GPU.
+then KSVQE scoring and training through the CLIs, then SimpleVQA scoring,
+training and its path from mp4 files — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -70,12 +71,32 @@ then KSVQE scoring and training through the CLIs — on one NVIDIA GPU.
    ``_last_state.pt`` it wrote; step 4 at the end, the schedule continued,
    the best-weights files, K4 10 + 10 and K5 2 + 2 launches a step, finite
    losses;
-12. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
+12. scores SimpleVQA at config/kwai_simpleVQA.yml's model block (bf16,
+   ResNet-50 (3, 4, 6, 3) with BatchNorm, head 9472 -> 128 -> 1) from
+   seeded weights, B=1, T=8 at 448x448 plus the SlowFast features, through
+   ``Evaluator.inference_test``: videos/s, dispatch, device busy by family,
+   launch calls, idle share and the bound from the products' FLOPs; its f32
+   score on the card (TF32 off) against the CPU's, and the bf16 score's gap;
+   no kernel of the port launches;
+13. trains SimpleVQA at the config's settings (B=4, T=8 at 448x448, AdamW
+   lr 3e-5 wd 0.05, warmup and cosine, EMA 0.999, BatchNorm in train mode)
+   through ``Trainer.train_epoch``: steps/s, videos/s, dispatch, device
+   busy, launches, peak memory; a finite loss, moved parameters and EMA,
+   every running statistic moved once a step and float32; one f32 step on
+   the card (TF32 off) against the same step on the CPU;
+14. writes 8 mp4s with cv2 (300 frames, 720x1280 W x H, 30 fps), extracts
+   their SlowFast features through ``cli.slowfast_features.main`` (clips/s,
+   decode ms a video, SlowFast ms a clip), trains one epoch through
+   ``cli.train.run`` and scores the val files through ``cli.test.run`` on
+   config/kwai_simpleVQA.yml pointed at them (steps/s, videos/s, the
+   Loader alone, the host's ms per video by stage with cv2's decode, the
+   card's idle share);
+15. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
    records, and as its last line ``{"ok": true, "device": {...}}``.
 
 The videos of steps 10 and 11 are synthetic (the config's
 ``source_factory``), chosen by the config: the time of their frames is
-not a decode time.  Exits non-zero without a result when CUDA is absent,
+not a decode time; step 14 decodes real files.  Exits non-zero without a result when CUDA is absent,
 when the package is not beside this script, or when any phase fails.
 Imports nothing of JAX.
 """
@@ -93,6 +114,7 @@ import tempfile
 import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -1059,9 +1081,9 @@ def _family(name: str) -> str:
     return "other"
 
 
-def profile_device(fn) -> dict:
-    """Device time by kernel family over one call of ``fn``
-    (torch.profiler)."""
+def profile_device(fn, family=None) -> dict:
+    """Device time by kernel family (``family``: kernel name -> family, by
+    default ``_family``) over one call of ``fn`` (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1072,7 +1094,8 @@ def profile_device(fn) -> dict:
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     top = []
-    fam = {k: 0.0 for k in FAMILIES}
+    fam = {k: 0.0 for k in (FAMILIES if family is None else ())}
+    family = family or _family
     syncs = {}  # host waits on the card inside the call, by API call
     host = []   # host ops by self CPU time (profiled, so inflated)
     launches = 0
@@ -1092,7 +1115,8 @@ def profile_device(fn) -> dict:
         if not us:
             continue
         top.append((us / 1e3, evt.count, evt.key[:120]))
-        fam[_family(evt.key)] += us / 1e3
+        name = family(evt.key)
+        fam[name] = fam.get(name, 0.0) + us / 1e3
     busy = sum(fam.values())
     top.sort(reverse=True)
     host.sort(reverse=True)
@@ -1257,7 +1281,8 @@ def tuning_stage_2_path(card: str) -> dict:
             "max_abs_score_diff": d}
 
 
-def forward_timings(model, dev_batch, video_ms: float, card: str) -> dict:
+def forward_timings(model, dev_batch, video_ms: float, card: str,
+                    family=None) -> dict:
     """One eval forward on a device-resident batch: its device time (CUDA
     events), the host's dispatch, the profiler's device busy and launch
     calls, and the card's idle share of the forward and of ``video_ms``,
@@ -1277,8 +1302,8 @@ def forward_timings(model, dev_batch, video_ms: float, card: str) -> dict:
         dispatch.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     dispatch_ms = sorted(dispatch)[1]
-    profile_device(forward)  # profiler warm-up
-    prof = profile_device(forward)
+    profile_device(forward, family)  # profiler warm-up
+    prof = profile_device(forward, family)
     # idle shares against unprofiled times: the profiler's own wall time
     # carries its tracing overhead
     idle_fwd = 1.0 - prof["device_ms"] / fwd_ms
@@ -1526,7 +1551,7 @@ def step_agreement(what, ta, tb, aux_a, aux_b, checked_prefix) -> dict:
             "worst_swin_grad_name": worst_name, "worst_grads": rel[:8]}
 
 
-def step_timings(tr, batch, e2e_ms: float, card: str) -> dict:
+def step_timings(tr, batch, e2e_ms: float, card: str, family=None) -> dict:
     """One train step of ``tr`` on a device-resident batch: its time (CUDA
     events), the host's dispatch, the profiler's device busy, launch calls
     and families, and the card's idle share of the step and of ``e2e_ms``,
@@ -1544,8 +1569,8 @@ def step_timings(tr, batch, e2e_ms: float, card: str) -> dict:
         dispatch.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     dispatch_ms = sorted(dispatch)[1]
-    profile_device(lambda: tr._step(dev))  # profiler warm-up
-    prof = profile_device(lambda: tr._step(dev))
+    profile_device(lambda: tr._step(dev), family)  # profiler warm-up
+    prof = profile_device(lambda: tr._step(dev), family)
     idle_step = 1.0 - prof["device_ms"] / step_ms
     idle_e2e = 1.0 - prof["device_ms"] / e2e_ms
     print(f"train step on a device-resident batch: {step_ms:.2f} ms; the "
@@ -2149,6 +2174,650 @@ def cli_train_path(card: str) -> dict:
                      for w, e, l in runs]}
 
 
+# --------------------------------------------------------------------------
+# SimpleVQA (config/kwai_simpleVQA.yml): eval, training, the path from mp4s
+
+SVQA_CONFIG = os.path.join(ROOT, "config", "kwai_simpleVQA.yml")
+SVQA_T, SVQA_CROP = 8, 448      # the config's clip_len and crop
+# the timed runs last seconds: SVQA_EVAL_BATCHES scored batches and
+# SVQA_TRAIN_STEPS train steps (after one warm-up step), cycling through
+# SVQA_DISTINCT prepared batches (each is prepared and copied anew)
+SVQA_EVAL_BATCHES = 256
+SVQA_TRAIN_STEPS = 64
+SVQA_DISTINCT = 8
+# f32 on the card (TF32 off) against f32 on the CPU, same weights and batch:
+# the eval score within SVQA_TOL x max(1, |score|); one train step's loss
+# within SVQA_TRAIN_TOL x |loss|, and each running mean and variance within
+# SVQA_TRAIN_TOL x its tensor's largest magnitude.  The bound is per tensor,
+# not per element: a channel's batch mean can sit near 0, where the f32
+# roundoff of summing the channel's activations in another order is not
+# relative to it (the per-element |d| / (|cpu| + 1e-3) is printed too).
+# ResNet-50 sums in other orders on the two (cuDNN, oneDNN).  A control,
+# the card's step with TF32 on, must fall outside these bounds, or they
+# could not see a fault of TF32's size.  SlowFast-R50's features of
+# SF_CHECK_CLIPS clips: within SF_TOL x max(1, max |feature|) of each
+# pathway, a bound that the CLI's own files (TF32) do not meet.
+SVQA_TOL = 1e-3
+SVQA_TRAIN_TOL = 1e-4
+SF_TOL = 1e-5
+SF_CHECK_CLIPS = 4
+SVQA_FILES = (32, 16)           # train, val mp4 files of the user path
+SVQA_FPS = 30
+
+
+def _svqa_family(name: str) -> str:
+    """Kernel families of a ResNet forward and backward."""
+    low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "implicit", "fprop", "dgrad",
+                              "wgrad", "xmma")):
+        return "conv (cuDNN)"
+    if any(k in low for k in ("gemm", "cutlass", "sm90", "nvjet")):
+        return "matmul (cuBLAS)"
+    if "batch_norm" in low or "batchnorm" in low or "welford" in low:
+        return "batch norm"
+    if "reduce" in low:
+        return "reduction"
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise"
+    return "other"
+
+
+def svqa_config() -> dict:
+    from kvq_tpu_torch.core.config import load_config
+
+    return load_config(SVQA_CONFIG)
+
+
+def svqa_views(rng, n: int, t: int = SVQA_T, size: int = SVQA_CROP):
+    """(n, t, size, size, 3) views as SimpleVQADataset ships them: 0-255
+    pixels under the reference's imagenet_unit_on_255 normalisation
+    (values in about [-2, 1113])."""
+    from kvq_tpu_torch.data import views as V
+
+    return np.stack([V.normalize(rng.integers(0, 256, (t, size, size, 3),
+                                              dtype=np.uint8),
+                                 "imagenet_unit_on_255") for _ in range(n)])
+
+
+def make_svqa_batch(rng, i: int, b: int = 1, t: int = SVQA_T,
+                    size: int = SVQA_CROP) -> dict:
+    """A SimpleVQA batch in the Loader's format: the views, the SlowFast
+    features (one 2304-vector a frame), labels."""
+    return {"simpleVQA": svqa_views(rng, b, t, size),
+            "feat": rng.standard_normal((b, t, 2304), dtype=np.float32),
+            "label": rng.standard_normal(b).astype(np.float32),
+            "video_name": [f"svqa_{i:03d}_{j}.mp4" for j in range(b)],
+            "num_clips": [{"simpleVQA": 1}] * b}
+
+
+def layer_flops(model, run) -> float:
+    """2 x the multiply-adds of every Conv2d and Linear over one call of
+    ``run``, from their output shapes."""
+    import torch
+
+    total = [0.0]
+
+    def hook(m, _, out):
+        k = m.weight[0].numel() if isinstance(m, torch.nn.Conv2d) \
+            else m.in_features
+        total[0] += 2.0 * out.numel() * k
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+class tf32:
+    """f32 convolutions and products in TF32 or not (cuDNN takes TF32 by
+    default, cuBLAS does not)."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        import torch
+
+        self.saved = (torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = self.on
+        torch.backends.cuda.matmul.allow_tf32 = self.on
+
+    def __exit__(self, *exc):
+        import torch
+
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.saved
+
+
+def svqa_eval_path(card: str) -> dict:
+    """SimpleVQA scoring at config/kwai_simpleVQA.yml's model block (bf16,
+    ResNet-50, head 9472 -> 128 -> 1): B=1, T=8 at 448x448 plus the SlowFast
+    features, prepared batches through ``Evaluator.inference_test``."""
+    import torch
+
+    from kvq_tpu_torch.data.pipeline import (
+        host_tensors, pad_batch_rows, reshape_for_clips)
+    from kvq_tpu_torch.models.vqa_network import build_model
+    from kvq_tpu_torch.train.evaluator import Evaluator
+
+    t_phase = time.time()
+    cfg = svqa_config()
+    model_cfg = {"name": cfg["name"], "model": cfg["model"]}
+    args = cfg["model"]["args"]["simpleVQA"]
+    t0 = time.time()
+    model = build_model(model_cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    layers = tuple(len(getattr(model.simpleVQA_backbone, f"layer{i}"))
+                   for i in range(1, 5))
+    q = model.simpleVQA_head.quality
+    print(f"SimpleVQA eval model: {SVQA_CONFIG[len(ROOT) + 1:]}'s model "
+          f"block ({cfg['model']['compute_dtype']}, ResNet-50 layers "
+          f"{layers}, head {q[0].in_features} -> {q[0].out_features} -> 1; "
+          f"backbone {args.get('backbone')}), {n_params} parameters, seeded "
+          f"weights; built in {time.time() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(5)
+    distinct = [make_svqa_batch(rng, i) for i in range(SVQA_DISTINCT)]
+    batches = [distinct[i % SVQA_DISTINCT] for i in range(SVQA_EVAL_BATCHES)]
+    ev = Evaluator(model_cfg, model=model, device="cuda")
+    root = tempfile.mkdtemp(prefix="kvq_svqa_eval_")
+    out_path = os.path.join(root, "output.txt")
+    ev.inference_test(batches[:1], out_path)  # warm-up: cuDNN's choices
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = ev.inference_test(batches, out_path)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    scores = [s for _, s in results]
+    with open(out_path) as f:
+        lines = f.read().splitlines()
+    print(f"SimpleVQA eval: {len(results)} videos scored in {wall:.3f} s = "
+          f"{len(results) / wall:.3f} videos/s (B=1, T={SVQA_T}, "
+          f"{SVQA_CROP}x{SVQA_CROP}, bf16; {card}); kernel launches "
+          f"{counts} (no kernel of the port on this path)", flush=True)
+    if len(scores) != SVQA_EVAL_BATCHES or not all(map(math.isfinite,
+                                                       scores)):
+        fail(f"SimpleVQA scores not finite or missing: {scores}")
+    if lines != [f"{n},{s}" for n, s in results]:
+        fail("SimpleVQA output.txt does not hold the scored videos")
+    if counts != NO_LAUNCHES:
+        fail(f"SimpleVQA eval launched a kernel of the port: {counts}")
+
+    hb = host_tensors(reshape_for_clips(pad_batch_rows(batches[0], 1),
+                                        ["simpleVQA"]), torch.bfloat16,
+                      pin=True)
+    dev = {k: v.cuda() for k, v in hb.items()}
+    prof = forward_timings(model, dev, wall / len(results) * 1e3, card,
+                           _svqa_family)
+
+    def forward():
+        with torch.no_grad():
+            model(dev, reduce_scores=True)
+
+    flops = layer_flops(model, forward)
+    nbytes = (sum(t.numel() * t.element_size() for t in dev.values())
+              + sum(p.numel() * p.element_size() for p in model.parameters()))
+    bound, bound_by = bound_ms(nbytes, flops)
+    print(f"SimpleVQA forward: {flops / 1e9:.1f} GFLOP (convolutions and "
+          f"products, from their shapes) = {flops / 1e9 / SVQA_T:.2f} a frame; "
+          f"bound {bound:.4f} ms ({bound_by}: bf16 at 989 TFLOP/s, 3.35 TB/s); "
+          f"the forward on a device-resident batch {prof['forward_ms']:.3f} "
+          f"ms = {prof['forward_ms'] / bound:.2f}x the bound; {card}",
+          flush=True)
+
+    # the same weights and batch in f32: the card with TF32 off against the
+    # CPU; then the bf16 score's gap to the f32 one
+    cfg32 = json.loads(json.dumps(model_cfg))
+    cfg32["model"]["compute_dtype"] = "float32"
+    sd = model.state_dict()
+    host = host_tensors(reshape_for_clips(pad_batch_rows(batches[0], 1),
+                                          ["simpleVQA"]), None, pin=False)
+    t0 = time.time()
+    with torch.no_grad():
+        cpu_score = float(build_model(cfg32, device="cpu", state_dict=sd)(
+            host, reduce_scores=True).reshape(()))
+    cpu_s = time.time() - t0
+    gpu32 = build_model(cfg32, device="cuda", state_dict=sd)
+    with tf32(False), torch.no_grad():
+        gpu_score = float(gpu32({k: v.cuda() for k, v in host.items()},
+                                reduce_scores=True).reshape(()))
+    d = abs(gpu_score - cpu_score)
+    tol = SVQA_TOL * max(1.0, abs(cpu_score))
+    bf16_gap = abs(scores[0] - gpu_score)
+    print(f"SimpleVQA f32 score on the card (TF32 off) {gpu_score:.7f} vs "
+          f"the CPU {cpu_score:.7f} ({cpu_s:.1f} s): |d| {d:.3g} (tol "
+          f"{tol:.3g}); the bf16 score {scores[0]:.7f}, |d| to the f32 one "
+          f"{bf16_gap:.4g} (reported: the view's values reach ~1113, and a "
+          f"bf16 input keeps 8 bits)", flush=True)
+    if not d <= tol:
+        fail("SimpleVQA's f32 score on the card disagrees with the CPU's")
+    del gpu32, model, ev
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    phase_s = time.time() - t_phase
+    print(f"SimpleVQA eval phase: {phase_s:.1f} s", flush=True)
+    prof.update(videos_per_s=len(results) / wall, launches=counts,
+                flops=flops, bound_ms=bound, bound_by=bound_by,
+                score_f32_card=gpu_score, score_f32_cpu=cpu_score,
+                score_abs_diff=d, bf16_abs_gap=bf16_gap, phase_s=phase_s)
+    prof.pop("top_host_ops", None)
+    return prof
+
+
+def _bn_stats(model) -> dict:
+    from kvq_tpu_torch.nn.resnet import BatchNorm
+
+    return {n: (m.running_mean.detach().clone(), m.running_var.detach().clone(),
+                int(m.num_batches_tracked))
+            for n, m in model.named_modules() if isinstance(m, BatchNorm)}
+
+
+def _stats_gap(want: dict, got: dict) -> dict:
+    """The worst gap of ``got``'s running statistics to ``want``'s (both
+    from :func:`_bn_stats`): max|d| / max|want| of a tensor, and |d| /
+    (|want| + 1e-3) of an element, with where each is."""
+    out = {"per_tensor": 0.0, "per_tensor_at": "", "per_element": 0.0,
+           "per_element_at": ""}
+    for n, (m, v, _) in want.items():
+        for kind, g, w in (("mean", got[n][0].cpu(), m),
+                           ("var", got[n][1].cpu(), v)):
+            d = (g - w).abs()
+            for key, r in (("per_tensor", (d.max() / w.abs().max()).item()),
+                           ("per_element",
+                            (d / (w.abs() + 1e-3)).max().item())):
+                if r > out[key]:
+                    out[key], out[f"{key}_at"] = r, f"{n} running_{kind}"
+    return out
+
+
+def svqa_train_path(card: str) -> dict:
+    """SimpleVQA training at config/kwai_simpleVQA.yml's settings (B=4,
+    T=8 at 448x448, AdamW, warmup + cosine, EMA, BatchNorm in train mode)
+    through ``Trainer.train_epoch``; then one f32 step at the same shape on
+    the card (TF32 off, and TF32 on as the control) against the same step
+    on the CPU."""
+    import torch
+
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    cfg = {k: v for k, v in svqa_config().items() if k != "data"}
+    b = int(cfg["batch_size"])
+    rng = np.random.default_rng(6)
+    distinct = [make_svqa_batch(rng, i, b) for i in range(SVQA_DISTINCT)]
+    batches = [distinct[i % SVQA_DISTINCT]
+               for i in range(SVQA_TRAIN_STEPS + 1)]
+    tr = Trainer(cfg, device="cuda", seed=0, steps_per_epoch=100)
+    params0 = [p.detach().clone() for p in tr.params]
+    ema0 = [e.clone() for e in tr.ema]
+    stats0 = _bn_stats(tr.model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(batches[0])  # warm-up: cuDNN's choices
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    last = tr.train_epoch(batches[1:])
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = SVQA_TRAIN_STEPS
+    print(f"SimpleVQA train: {steps} steps in {wall:.3f} s = "
+          f"{steps / wall:.3f} steps/s = {steps * b / wall:.3f} videos/s "
+          f"(B={b}, T={SVQA_T}, {SVQA_CROP}x{SVQA_CROP}, bf16 compute, f32 "
+          f"masters); last losses {last}; kernel launches {counts}; peak "
+          f"memory {peak / 2 ** 30:.3f} GiB; {card}", flush=True)
+    if counts != NO_LAUNCHES:
+        fail(f"SimpleVQA train launched a kernel of the port: {counts}")
+    check_trained(tr, ema0, last)
+    moved = max((p - p0).abs().max().item()
+                for p, p0 in zip(tr.params, params0))
+    if not moved > 0:
+        fail("SimpleVQA: the parameters did not move")
+    stats = _bn_stats(tr.model)
+    still = [n for n, (m, v, k) in stats.items()
+             if torch.equal(m, stats0[n][0]) or torch.equal(v, stats0[n][1])
+             or m.dtype != torch.float32 or v.dtype != torch.float32
+             or k != stats0[n][2] + steps + 1]
+    print(f"SimpleVQA train: parameters moved by up to {moved:.3g}; "
+          f"{len(stats)} BatchNorms, running statistics float32 and updated "
+          f"once a step: {len(stats) - len(still)} of {len(stats)}",
+          flush=True)
+    if still:
+        fail(f"SimpleVQA: running statistics not updated once a step, or "
+             f"not f32: {still[:4]}")
+    del params0, ema0
+    prof = step_timings(tr, batches[1], wall / steps * 1e3, card,
+                        _svqa_family)
+    del tr
+    torch.cuda.empty_cache()
+
+    # one f32 step at the cell's shape on the card (TF32 off) against the
+    # same step on the CPU; the control is the card's step with TF32 on
+    cfg32 = json.loads(json.dumps(cfg))
+    cfg32["model"]["compute_dtype"] = "float32"
+    batch = batches[1]
+    tc = Trainer(cfg32, device="cpu", seed=0, steps_per_epoch=100)
+    init = {k: v.clone() for k, v in tc.model.state_dict().items()}
+    t0 = time.time()
+    aux_c = tc.train_step(batch)
+    cpu_s = time.time() - t0
+    sc = _bn_stats(tc.model)
+    del tc
+    ltol = SVQA_TRAIN_TOL * abs(aux_c["total_loss"])
+    check = {"loss_cpu": aux_c["total_loss"], "cpu_s": cpu_s}
+    for label, on in (("TF32 off", False), ("control, TF32 on", True)):
+        tg = Trainer(cfg32, device="cuda", seed=0, steps_per_epoch=100)
+        tg.model.load_state_dict(init)
+        with tf32(on):
+            aux_g = tg.train_step(batch)
+        gap = _stats_gap(sc, _bn_stats(tg.model))
+        dl = abs(aux_g["total_loss"] - aux_c["total_loss"])
+        within = dl <= ltol and gap["per_tensor"] <= SVQA_TRAIN_TOL
+        print(f"SimpleVQA f32 train step (B={b}, T={SVQA_T}, "
+              f"{SVQA_CROP}x{SVQA_CROP}) on the card ({label}) vs the CPU "
+              f"({cpu_s:.1f} s): loss {aux_g['total_loss']:.7f} vs "
+              f"{aux_c['total_loss']:.7f}, |d| {dl:.3g} (tol {ltol:.3g}); "
+              f"running statistics, worst max|d| / max|cpu| of a tensor "
+              f"{gap['per_tensor']:.3g} at {gap['per_tensor_at']} (tol "
+              f"{SVQA_TRAIN_TOL}), worst |d| / (|cpu| + 1e-3) of an element "
+              f"{gap['per_element']:.3g} at {gap['per_element_at']} "
+              f"(printed, not bounded); within the bounds: {within}",
+              flush=True)
+        check[label] = dict(gap, loss_card=aux_g["total_loss"],
+                            loss_abs_diff=dl, within=within)
+        del tg
+        torch.cuda.empty_cache()
+        if not on and not within:
+            fail("SimpleVQA: the card's f32 train step disagrees with the "
+                 "CPU's")
+        if on and within:
+            fail("SimpleVQA: the TF32 control is within the bounds of the "
+                 "card-vs-CPU train step, which cannot see it")
+    phase_s = time.time() - t_phase
+    print(f"SimpleVQA train phase: {phase_s:.1f} s", flush=True)
+    prof.pop("top_host_ops", None)
+    prof.update(steps_per_s=steps / wall, videos_per_s=steps * b / wall,
+                launches=counts, peak_memory_bytes=peak, last=last,
+                cpu_check=check, phase_s=phase_s)
+    return prof
+
+
+def write_mp4(path: str, seed: int) -> None:
+    """CLI_FRAMES frames of CLI_W x CLI_H (portrait) at SVQA_FPS, mp4v: a
+    smooth seeded pattern scrolling and a square crossing it."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 256, (CLI_H // 40, CLI_W // 40, 3),
+                         dtype=np.uint8)
+    base = cv2.resize(small, (CLI_W, CLI_H), interpolation=cv2.INTER_CUBIC)
+    wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), SVQA_FPS,
+                         (CLI_W, CLI_H))
+    try:
+        for t in range(CLI_FRAMES):
+            frame = np.roll(base, 6 * t, axis=0)
+            x, y = (5 * t) % (CLI_W - 120), (3 * t) % (CLI_H - 120)
+            frame[y:y + 120, x:x + 120] = (40 * seed) % 256
+            wr.write(frame)
+    finally:
+        wr.release()
+
+
+def svqa_host_ms(dataset, n: int) -> dict:
+    """The host's ms per video of a SimpleVQADataset, by stage, one thread:
+    cv2's decode of the sampled frames, the resize and crop, the
+    normalisation, the features read and the collate."""
+    from kvq_tpu_torch.data import views as V
+    from kvq_tpu_torch.data.datasets import _filter_view_opts
+    from kvq_tpu_torch.data.decode import decode_views, open_video
+    from kvq_tpu_torch.data.pipeline import collate
+
+    ms = dict.fromkeys(("cv2 decode", "resize + crop", "normalise",
+                        "features", "collate"), 0.0)
+
+    def timed(stage, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        ms[stage] += (time.perf_counter() - t0) * 1e3 / n
+        return out
+
+    sopt = _filter_view_opts(dataset.sample_types["simpleVQA"])
+    for i in range(n):
+        info = dataset.video_infos[i]
+        rng = dataset._rng(i)
+        videos, _ = timed("cv2 decode", lambda: decode_views(
+            open_video(info["filename"], pad_short=130),
+            dataset._samplers(rng), False))
+        view = timed("resize + crop", V.get_single_view, videos["simpleVQA"],
+                     "simpleVQA", rng=rng, phase=dataset.phase, **sopt)
+        view = timed("normalise", V.normalize, view, "imagenet_unit_on_255")
+        feat = timed("features", dataset._load_features, info["video_name"])
+        timed("collate", collate, [{"simpleVQA": view, "feat": feat,
+                                    "label": 1.0, "video_name": "v"}])
+    return ms
+
+
+def slowfast_check(video: str, feat_dir: str, card: str) -> dict:
+    """SlowFast-R50's features of the first SF_CHECK_CLIPS clips of
+    ``video``, with the weights ``cli.slowfast_features`` seeded on the
+    card: the card in f32 with TF32 off against the CPU (bounded), and the
+    files the CLI wrote (cuDNN's default TF32) against the CPU (printed)."""
+    import torch
+
+    from kvq_tpu_torch.cli import slowfast_features as cli_sf
+
+    resized, fps = cli_sf.read_resized(video)
+    clips = cli_sf.clips_of(resized, fps)[:SF_CHECK_CLIPS]
+    gpu = cli_sf.load_model(None, torch.device("cuda"))
+    cpu = cli_sf.load_model(None, torch.device("cpu"))
+    cpu.load_state_dict(gpu.state_dict())
+    t0 = time.time()
+    want = cli_sf.extract_features(cpu, clips, torch.device("cpu"))
+    cpu_s = time.time() - t0
+    with tf32(False):
+        got = cli_sf.extract_features(gpu, clips, torch.device("cuda"))
+    files = [tuple(np.load(os.path.join(feat_dir,
+                                        f"feature_{k}_{kind}_feature.npy"))
+                   for kind in ("slow", "fast")) for k in range(len(clips))]
+    out = {"cpu_s": cpu_s}
+    for label, feats in (("card", got), ("files", files)):
+        for pi, kind in enumerate(("slow", "fast")):
+            w = np.stack([f[pi] for f in want])
+            d = float(np.abs(np.stack([f[pi] for f in feats]) - w).max())
+            out[f"{label}_{kind}"] = d
+            out[f"{kind}_tol"] = SF_TOL * max(1.0, float(np.abs(w).max()))
+    print(f"SlowFast-R50 features of {len(clips)} clips of "
+          f"{os.path.basename(video)}, f32 on the card (TF32 off) vs the CPU "
+          f"({cpu_s:.1f} s): max|d| slow {out['card_slow']:.3g} (tol "
+          f"{out['slow_tol']:.3g}), fast {out['card_fast']:.3g} (tol "
+          f"{out['fast_tol']:.3g}); the CLI's files (TF32) vs the CPU: slow "
+          f"{out['files_slow']:.3g}, fast {out['files_fast']:.3g} (printed); "
+          f"{card}", flush=True)
+    if not (out["card_slow"] <= out["slow_tol"]
+            and out["card_fast"] <= out["fast_tol"]):
+        fail("SlowFast-R50's features on the card disagree with the CPU's")
+    del gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def svqa_files_path(card: str) -> dict:
+    """The SimpleVQA user's path from mp4 files: SlowFast features through
+    ``cli.slowfast_features.main``, one epoch of ``cli.train.run`` and
+    ``cli.test.run`` on config/kwai_simpleVQA.yml pointed at the files."""
+    import torch
+
+    from kvq_tpu_torch.cli import slowfast_features as cli_sf
+    from kvq_tpu_torch.cli import test as cli_test
+    from kvq_tpu_torch.cli import train as cli_train
+    from kvq_tpu_torch.data import datasets as PD
+    from kvq_tpu_torch.data.pipeline import build_loaders
+    from kvq_tpu_torch.train.evaluator import Evaluator
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="kvq_svqa_files_")
+    vids, feat = os.path.join(root, "videos"), os.path.join(root, "feat")
+    os.makedirs(vids)
+    rng = np.random.default_rng(8)
+    splits = {s: [(f"{s}_{i}.mp4", float(rng.uniform(1, 5))) for i in range(n)]
+              for s, n in zip(("train", "val"), SVQA_FILES)}
+    names = [n for rows in splits.values() for n, _ in rows]
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(lambda a: write_mp4(os.path.join(vids, a[1]), a[0]),
+                      enumerate(names)))
+    write_s = time.time() - t0
+    for s, rows in splits.items():
+        with open(os.path.join(root, f"{s}.csv"), "w") as f:
+            f.write("filename,score\n")
+            f.writelines(f"{n},{v}\n" for n, v in rows)
+    with open(os.path.join(root, "all.csv"), "w") as f:
+        f.write("filename\n")
+        f.writelines(f"{n}\n" for n in names)
+    print(f"SimpleVQA files: {len(names)} mp4s (mp4v) of {CLI_FRAMES} frames,"
+          f" {CLI_W}x{CLI_H} (W x H, portrait) at {SVQA_FPS} fps, written by "
+          f"cv2 in {write_s:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    sf = cli_sf.main(["--videos_csv", os.path.join(root, "all.csv"),
+                      "--video_root", vids, "--out", feat])
+    sf_s = time.perf_counter() - t0
+    for n in names:
+        for k in range(10):
+            for kind, dim in (("slow", 2048), ("fast", 256)):
+                a = np.load(os.path.join(feat, n,
+                                         f"feature_{k}_{kind}_feature.npy"))
+                if a.shape != (dim,) or not np.isfinite(a).all():
+                    fail(f"slowfast_features: {n} clip {k} {kind}: "
+                         f"{a.shape}, finite {np.isfinite(a).all()}")
+    print(f"cli.slowfast_features: {sf['videos']} videos, {sf['clips']} clips "
+          f"in {sf_s:.3f} s (model build included) = {sf['clips'] / sf_s:.3f} "
+          f"clips/s; cv2 decode and resize {sf['decode_s'] / sf['videos'] * 1e3:.1f}"
+          f" ms a video, clip assembly and normalisation "
+          f"{sf['clips_s'] / sf['videos'] * 1e3:.1f} ms a video; SlowFast-R50 "
+          f"(f32, cuDNN's default TF32; clips batched by video, copies "
+          f"included) {sf['model_s'] / sf['clips'] * 1e3:.2f} ms a clip; "
+          f"{card}", flush=True)
+    if sf["videos"] != len(names) or sf["clips"] != 10 * len(names):
+        fail(f"slowfast_features: {sf}")
+    sf_check = slowfast_check(os.path.join(vids, names[0]),
+                              os.path.join(feat, names[0]), card)
+
+    cfg = svqa_config()
+    cfg["load_path"] = cfg["test_load_path"] = None
+    for s in ("train", "val"):
+        cfg["data"][s]["args"].update(
+            anno_file=os.path.join(root, f"{s}.csv"), data_prefix=vids,
+            data_prefix_3D=feat)
+    work = os.path.join(root, "work")
+    epoch_s, step_t = [], []
+    train_epoch, step = Trainer.train_epoch, Trainer._step
+
+    def timed_epoch(self, batches):
+        t0 = time.perf_counter()
+        out = train_epoch(self, batches)
+        epoch_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_step(self, dev):
+        step_t.append(time.perf_counter())
+        return step(self, dev)
+
+    Trainer.train_epoch, Trainer._step = timed_epoch, timed_step
+    try:
+        t0 = time.perf_counter()
+        tr = cli_train.run(cfg, work, "val", epochs=1, seed=0, device="cuda")
+        train_wall = time.perf_counter() - t0
+    finally:
+        Trainer.train_epoch, Trainer._step = train_epoch, step
+    spe = SVQA_FILES[0] // int(cfg["batch_size"])
+    steady = (len(step_t) - 1) / (step_t[-1] - step_t[0])
+    files = sorted(os.listdir(work))
+    print(f"cli.train.run (SimpleVQA): step {tr.step}, files {files}; wall "
+          f"{train_wall:.3f} s (build, {spe} steps, {SVQA_FILES[1]} val "
+          f"videos scored twice, state written); its train epoch (first "
+          f"batch asked for to losses read) {epoch_s[0]:.3f} s = "
+          f"{spe / epoch_s[0]:.3f} steps/s; after the first batch "
+          f"{len(step_t) - 1} steps from the first step's start to the "
+          f"last's in {step_t[-1] - step_t[0]:.3f} s = {steady:.3f} steps/s "
+          f"= {steady * int(cfg['batch_size']):.3f} videos/s; last losses "
+          f"{tr.last_losses}; {card}", flush=True)
+    if files != ["SimpleVQA_head_val_n_finetuned.pth",
+                 "SimpleVQA_head_val_s_finetuned.pth",
+                 "SimpleVQA_last_state.pt"] or tr.step != spe:
+        fail(f"cli.train (SimpleVQA): step {tr.step}, wrote {files}")
+    if not all(map(math.isfinite, tr.last_losses.values())):
+        fail(f"cli.train (SimpleVQA): losses not finite: {tr.last_losses}")
+    del tr
+    torch.cuda.empty_cache()
+
+    test_cfg = dict(cfg, test_load_path=os.path.join(
+        work, "SimpleVQA_head_val_s_finetuned.pth"))
+    _, loader = build_loaders(test_cfg)
+    t0 = time.perf_counter()
+    batches = list(loader.epoch(0))
+    loader_s = time.perf_counter() - t0
+    host_ms = svqa_host_ms(loader.dataset, SVQA_FILES[1])
+    want = dict(Evaluator(test_cfg, device="cuda").inference_test(
+        batches, os.path.join(root, "ref.txt")))
+    out = os.path.join(root, "output.txt")
+    first = []
+    open_video = PD.open_video
+    PD.open_video = lambda *a, **k: (first.append(time.perf_counter())
+                                     or open_video(*a, **k))
+    try:
+        results = cli_test.run(test_cfg, out)
+        end = time.perf_counter()
+    finally:
+        PD.open_video = open_video
+    e2e_s = end - first[0]
+    prof = profile_device(lambda: cli_test.run(test_cfg, out + ".profiled"),
+                          _svqa_family)
+    idle = 1.0 - prof["device_ms"] / (e2e_s * 1e3)
+    n_val = SVQA_FILES[1]
+    scores = [s for _, s in results]
+    diffs = [abs(s - want[n]) for n, s in results]
+    print(f"cli.test.run (SimpleVQA): {n_val} files scored in {e2e_s:.3f} s "
+          f"from the first file opened to output.txt written = "
+          f"{n_val / e2e_s:.3f} videos/s; the Loader alone "
+          f"({loader.num_workers} threads) {n_val / loader_s:.3f} videos/s; "
+          f"host ms per video by stage, one thread "
+          f"{json.dumps({k: round(v, 2) for k, v in host_ms.items()})}; device "
+          f"busy over a profiled run {prof['device_ms']:.2f} ms, idle share "
+          f"{idle:.3f} of the unprofiled run; scores against the Evaluator "
+          f"on the Loader's batches max|d| {max(diffs):.3g}; {card}",
+          flush=True)
+    if [n for n, _ in results] != [n for n, _ in splits["val"]] or not all(
+            map(math.isfinite, scores)):
+        fail(f"cli.test (SimpleVQA): {results}")
+    if not max(d / (SCORE_TOL * max(1.0, abs(want[n])))
+               for d, (n, _) in zip(diffs, results)) <= 1.0:
+        fail("cli.test (SimpleVQA): scores disagree with the Evaluator's")
+    shutil.rmtree(root)
+    phase_s = time.time() - t_phase
+    print(f"SimpleVQA files phase: {phase_s:.1f} s", flush=True)
+    return {"write_s": write_s, "slowfast": sf, "slowfast_s": sf_s,
+            "clips_per_s": sf["clips"] / sf_s,
+            "decode_ms_per_video": sf["decode_s"] / sf["videos"] * 1e3,
+            "slowfast_ms_per_clip": sf["model_s"] / sf["clips"] * 1e3,
+            "slowfast_check": sf_check,
+            "train_wall_s": train_wall, "train_epoch_s": epoch_s[0],
+            "train_epoch_steps_per_s": spe / epoch_s[0],
+            "train_steady_steps_per_s": steady,
+            "test_videos_per_s": n_val / e2e_s,
+            "loader_videos_per_s": n_val / loader_s, "host_ms": host_ms,
+            "device_busy_ms": prof["device_ms"], "idle_share": idle,
+            "families_ms": prof["families_ms"],
+            "max_abs_score_diff": max(diffs), "phase_s": phase_s}
+
+
 def first_line(cmd) -> str:
     try:
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
@@ -2241,6 +2910,9 @@ def main() -> int:
     swin_train = swin_train_path(card)
     cli_eval = cli_eval_path(card)
     cli_train_run = cli_train_path(card)
+    svqa_eval = svqa_eval_path(card)
+    svqa_train = svqa_train_path(card)
+    svqa_files = svqa_files_path(card)
 
     def record(name, source, replaces, agg, launches, lib,
                per="the calls of one forward"):
@@ -2328,6 +3000,9 @@ def main() -> int:
                    "tuning_stage_2": ts2,
                    "swin": swin, "train": train, "swin_train": swin_train,
                    "cli_eval": cli_eval, "cli_train": cli_train_run,
+                   "simplevqa_eval": svqa_eval,
+                   "simplevqa_train": svqa_train,
+                   "simplevqa_files": svqa_files,
                    "kernels": kernels}, f,
                   indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line

@@ -2,12 +2,15 @@
 
 :func:`state_dict_from_jax` takes the JAX package's ``params`` and
 ``batch_stats`` trees of a ``VQANetwork`` (nested dicts of arrays under
-flax names: ``<key>_backbone/...``, ``<key>_head/...``) for the KSVQE key
-and the Swin-T-3D keys, and returns the port's ``state_dict``, whose names
-are the PyTorch reference checkpoint's — the names
-``kvq_tpu/core/torch_import.py`` reads (``convert_ksvqe_full``;
+flax names: ``<key>_backbone/...``, ``<key>_head/...``) for the KSVQE key,
+the Swin-T-3D keys and ``simpleVQA``, and returns the port's
+``state_dict``, whose names are the PyTorch reference checkpoint's — the
+names ``kvq_tpu/core/torch_import.py`` reads (``convert_ksvqe_full``;
 ``convert_swin3d`` for a Swin trunk, whose stages the JAX tree keeps under
-``trunk``).  It is that converter's inverse:
+``trunk``; ``convert_simplevqa_full`` for SimpleVQA's ResNet-50 trunk and
+its ``fc1``/``fc2`` head).  :func:`map_slowfast_tree` does the same for a
+``SlowFastR50`` tree (``convert_slowfast_r50``, pytorchvideo's names).
+Each is the converter's inverse:
 
   - Dense kernel (in, out)        -> Linear weight (out, in)
   - Conv kernel HWIO / DHWIO      -> OIHW / OIDHW
@@ -167,28 +170,40 @@ def _clip(o: _Out, pre: str, p: _Tree) -> None:
         o.adapter(f"{pre}adapter_layer.{i}", p[f"adapter_layer_{i}"])
 
 
-def _contrique(o: _Out, pre: str, p: _Tree, s: _Tree) -> None:
-    enc, encs = p["encoder"], s["encoder"]
-    e = f"{pre}encoder."
+def _conv2d(o: _Out, name: str, p) -> None:
+    o.put(name, p["kernel"], lambda k: k.transpose(3, 2, 0, 1))  # HWIO
 
-    def conv(name, cp):
-        o.put(name, cp["kernel"], lambda k: k.transpose(3, 2, 0, 1))
 
-    conv(f"{e}0.weight", enc["stem"]["conv1"])
-    o.bn(f"{e}1", enc["stem"]["bn1"], encs["stem"]["bn1"])
-    for name in enc:
+def _conv3d(o: _Out, name: str, p) -> None:
+    o.put(name, p["kernel"], lambda k: k.transpose(4, 3, 0, 1, 2))  # DHWIO
+
+
+def _resnet(o: _Out, p: _Tree, s: _Tree, stem: tuple[str, str],
+            stage_prefix) -> None:
+    """A JAX ResNetTrunk (``stem``, ``layer{i}_{b}``): the stem's conv and
+    BatchNorm to the names ``stem``, block ``b`` of stage ``i`` under
+    ``stage_prefix(i)``."""
+    _conv2d(o, f"{stem[0]}.weight", p["stem"]["conv1"])
+    o.bn(stem[1], p["stem"]["bn1"], s["stem"]["bn1"])
+    for name in p:
         if not name.startswith("layer"):
             continue
         stage, blk = name[len("layer"):].split("_")
-        dst = f"{e}{3 + int(stage)}.{blk}"
-        bp, bs = enc[name], encs[name]
-        for ci in (1, 2, 3):
-            conv(f"{dst}.conv{ci}.weight", bp[f"conv{ci}"])
+        dst = f"{stage_prefix(int(stage))}.{blk}"
+        bp, bs = p[name], s[name]
+        for ci in (1, 2, 3):  # a BasicBlock has no conv3: nothing is put
+            _conv2d(o, f"{dst}.conv{ci}.weight", bp[f"conv{ci}"])
             o.bn(f"{dst}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
         if "downsample_conv" in bp:
-            conv(f"{dst}.downsample.0.weight", bp["downsample_conv"])
+            _conv2d(o, f"{dst}.downsample.0.weight", bp["downsample_conv"])
             o.bn(f"{dst}.downsample.1", bp["downsample_bn"],
                  bs["downsample_bn"])
+
+
+def _contrique(o: _Out, pre: str, p: _Tree, s: _Tree) -> None:
+    e = f"{pre}encoder."
+    _resnet(o, p["encoder"], s["encoder"], (f"{e}0", f"{e}1"),
+            lambda stage: f"{e}{3 + stage}")
     o.dense(f"{pre}projector.0", p["projector_fc1"], bias=False)
     o.bn(f"{pre}projector.1", p["projector_bn1"], s["projector_bn1"])
     o.dense(f"{pre}projector.3", p["projector_fc2"], bias=False)
@@ -220,31 +235,79 @@ def _ksvqe(o: _Out, pre: str, p: _Tree, s: _Tree) -> None:
     o.put(f"{pre}a2", p["a2"])
 
 
+def _unread(params: Mapping, batch_stats: Mapping | None, used: set
+            ) -> list[str]:
+    return ["/".join(path) for tree, pre in (
+        (params, ()), (batch_stats or {}, ("batch_stats",)))
+        for path in _leaves(tree, pre) if path not in used]
+
+
 def map_jax_tree(params: Mapping, batch_stats: Mapping | None = None
                  ) -> tuple[dict[str, torch.Tensor], list[str]]:
-    """JAX VQANetwork trees (KSVQE and Swin-T-3D keys, whole or partial) ->
-    (the port's state_dict of what they hold, the ``/``-joined paths of the
-    leaves that map to no port name).  A backbone of a key that is not
-    ported raises ``NotImplementedError``."""
+    """JAX VQANetwork trees (KSVQE, Swin-T-3D and simpleVQA keys, whole or
+    partial) -> (the port's state_dict of what they hold, the
+    ``/``-joined paths of the leaves that map to no port name).  A backbone
+    of a key that is not ported raises ``NotImplementedError``."""
     used: set = set()
     p, s = _Tree(params, (), used), _Tree(batch_stats, ("batch_stats",), used)
     o = _Out()
     for name in p:
         key, _, part = name.rpartition("_")
         tree = p[name]
-        if part == "head":
+        if part == "head" and key == "simpleVQA":
+            o.dense(f"{name}.quality.0", tree["fc1"])
+            o.dense(f"{name}.quality.1", tree["fc2"])
+        elif part == "head":
             o.conv1x1(f"{name}.fc_hid", tree["fc_hid"], 3)
             o.conv1x1(f"{name}.fc_last", tree["fc_last"], 3)
         elif name == "KSVQE_backbone":
             _ksvqe(o, f"{name}.", tree, s[name])
+        elif name == "simpleVQA_backbone":
+            _resnet(o, tree["trunk"], s[name]["trunk"],
+                    (f"{name}.conv1", f"{name}.bn1"),
+                    lambda stage: f"{name}.layer{stage}")
         elif part == "backbone" and "trunk" in tree:  # a Swin-T-3D key
             _swin(o, f"{name}.", tree, tree["trunk"])
         elif part == "backbone":
             raise NotImplementedError(f"model key {key!r} is not ported yet")
-    unread = [path for tree, pre in ((params, ()),
-                                     (batch_stats or {}, ("batch_stats",)))
-              for path in _leaves(tree, pre) if path not in used]
-    return o.sd, ["/".join(path) for path in unread]
+    return o.sd, _unread(params, batch_stats, used)
+
+
+def map_slowfast_tree(params: Mapping, batch_stats: Mapping | None = None
+                      ) -> tuple[dict[str, torch.Tensor], list[str]]:
+    """A JAX ``SlowFastR50`` tree (kvq_tpu/nn/slowfast.py: ``slow`` /
+    ``fast`` pathways of ``stem_conv``, ``stem_bn`` and ``res{i}_{b}``
+    blocks, ``lateral_{i}_conv`` / ``_bn`` fusions), whole or partial ->
+    (the state_dict of :class:`~kvq_tpu_torch.nn.slowfast.SlowFastR50`
+    under pytorchvideo's names, the unread leaves)."""
+    used: set = set()
+    p, s = _Tree(params, (), used), _Tree(batch_stats, ("batch_stats",), used)
+    o = _Out()
+    for pi, path in ((0, "slow"), (1, "fast")):
+        pp, ps = p[path], s[path]
+        stem = f"blocks.0.multipathway_blocks.{pi}"
+        _conv3d(o, f"{stem}.conv.weight", pp["stem_conv"])
+        o.bn(f"{stem}.norm", pp["stem_bn"], ps["stem_bn"])
+        for name in pp:
+            if not name.startswith("res"):
+                continue
+            stage, blk = name[len("res"):].split("_")
+            dst = (f"blocks.{int(stage) - 1}.multipathway_blocks.{pi}"
+                   f".res_blocks.{blk}")
+            bp, bs = pp[name], ps[name]
+            for ci, tc in ((1, "a"), (2, "b"), (3, "c")):
+                _conv3d(o, f"{dst}.branch2.conv_{tc}.weight", bp[f"conv{ci}"])
+                o.bn(f"{dst}.branch2.norm_{tc}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+            _conv3d(o, f"{dst}.branch1_conv.weight", bp["downsample_conv"])
+            o.bn(f"{dst}.branch1_norm", bp["downsample_bn"],
+                 bs["downsample_bn"])
+    for name in p:
+        if name.startswith("lateral_") and name.endswith("_conv"):
+            i = name.split("_")[1]
+            dst = f"blocks.{i}.multipathway_fusion"
+            _conv3d(o, f"{dst}.conv_fast_to_slow.weight", p[name])
+            o.bn(f"{dst}.norm", p[f"lateral_{i}_bn"], s[f"lateral_{i}_bn"])
+    return o.sd, _unread(params, batch_stats, used)
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None = None

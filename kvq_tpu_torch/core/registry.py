@@ -3,8 +3,12 @@
 
 The reference resolves dataset classes by reflection (``getattr(datasets,
 cfg["type"])``, trainer.py:120-123); here a decorator registry does, so an
-unknown ``data.<split>.type`` names the registered ones.  The port's model
-keys are resolved by ``models/vqa_network.py``.
+unknown ``data.<split>.type`` names the registered ones: ``KVQDataset``,
+``SimpleVQADataset`` and ``GenericViewDataset``, and their reference names
+``ViewDecompositionDataset_KVQ``,
+``ViewDecompositionDataset_add_forSimpleVQA`` and
+``ViewDecompositionDataset`` (data/datasets.py).  The port's model keys are
+resolved by ``models/vqa_network.py``.
 """
 
 from __future__ import annotations

@@ -8,6 +8,12 @@ tensors).
         (imagenet_255-normalised mosaic, s2d-packed with ``fragment_s2d``),
         ``resize_video`` (CLIP-normalised resize view), ``dis_label``,
         ``label``, ...
+  - :class:`SimpleVQADataset` == ViewDecompositionDataset_add_forSimpleVQA
+        (fusion_datasets.py:786-927): CSV with a header ``filename,score``;
+        emits the ``simpleVQA`` view (resize, crop, the
+        ``imagenet_unit_on_255`` normalisation) and the precomputed
+        SlowFast features ``feat`` (cli/slowfast_features.py's files, or
+        ``opt["feature_factory"]``).
   - :class:`GenericViewDataset` == ViewDecompositionDataset
         (fusion_datasets.py:664-775): TXT ``filename,_,_,label``.
 
@@ -27,6 +33,7 @@ elsewhere and, with the module attribute ``NATIVE`` false, everywhere.
 
 from __future__ import annotations
 
+import csv
 import os.path as osp
 import zlib
 from typing import Any, Callable
@@ -73,7 +80,14 @@ def _native_views(raw: np.ndarray, sopt: dict, rng):
 
 
 class _ViewDatasetBase:
-    """Common machinery: annotation list, samplers, per-sample RNG."""
+    """Common machinery: annotation list, samplers, per-sample RNG, and the
+    item of one normalised view per sample type."""
+
+    # views.normalize's profile of every view (0-255 ImageNet, reference
+    # fusion_datasets.py:687-688); whether the view functions are told the
+    # phase (SimpleVQA's random or centre crop)
+    NORM = "imagenet_255"
+    VIEW_PHASE = False
 
     def __init__(self, opt: dict, namelist=None):
         self.opt = opt
@@ -108,6 +122,32 @@ class _ViewDatasetBase:
 
     def __len__(self) -> int:
         return len(self.video_infos)
+
+    def __getitem__(self, index: int, epoch: int = 0) -> dict:
+        info = self.video_infos[index]
+        rng = self._rng(index, epoch)
+        is_train = self.phase == "train"
+        source = self.source_factory(info["filename"])
+        videos, frame_inds = decode_views(source, self._samplers(rng), is_train)
+
+        data: dict[str, Any] = {}
+        for stype, raw in videos.items():
+            sopt = _filter_view_opts(self.sample_types[stype])
+            if self.VIEW_PHASE:
+                sopt["phase"] = self.phase
+            view = V.get_single_view(raw, stype, rng=rng, **sopt)
+            data[stype] = V.normalize(view, self.NORM)
+
+        data["num_clips"] = {k: s["num_clips"] for k, s in self.sample_types.items()}
+        data["clip_len"] = {k: s["clip_len"] for k, s in self.sample_types.items()}
+        data["frame_inds"] = frame_inds
+        data["label"] = info["label"]
+        # global dataset position: lets sharded/mesh eval identify and
+        # dedupe rows without assuming device ordering
+        data["sample_index"] = int(index)
+        data["video_name"] = info["video_name"]
+        data["name"] = info["filename"]
+        return data
 
 
 @DATASETS.register("KVQDataset")
@@ -174,6 +214,72 @@ class KVQDataset(_ViewDatasetBase):
         return data
 
 
+@DATASETS.register("SimpleVQADataset")
+class SimpleVQADataset(_ViewDatasetBase):
+    VIDEO_LENGTH_READ = 8  # reference fusion_datasets.py:860
+    # the reference's quirk, kept: unit-scale ImageNet mean/std on 0-255
+    # pixels, no /255 (fusion_datasets.py:811-812,901-903)
+    NORM = "imagenet_unit_on_255"
+    VIEW_PHASE = True
+
+    def __init__(self, opt: dict, namelist=None):
+        self.data_prefix_3d = opt.get("data_prefix_3D", "")
+        self.feature_type = opt.get("feature_type", "SlowFast")
+        # feature_factory(video_name) -> (clip_len, 2304) array, replaces
+        # the feature files (synthetic data, tests)
+        self.feature_factory = opt.get("feature_factory", None)
+        super().__init__(opt, namelist)
+
+    def _read_annotations(self) -> None:
+        if isinstance(self.ann_file, list):
+            self.video_infos = self.ann_file
+            return
+        with open(self.ann_file, newline="") as f:
+            reader = csv.reader(f)
+            next(reader)  # header row (reference fusion_datasets.py:840)
+            for row in reader:
+                self.video_infos.append(
+                    dict(
+                        filename=osp.join(self.data_prefix, row[0]),
+                        label=float(row[1]),
+                        video_name=row[0],
+                    )
+                )
+
+    def _load_features(self, video_name: str) -> np.ndarray:
+        """(n, dims) float32: one row per feature clip, n the sample type's
+        ``clip_len`` (the reference hardcodes 8, its config's clip_len)."""
+        n = next(
+            (s.get("clip_len", self.VIDEO_LENGTH_READ)
+             for s in self.sample_types.values()),
+            self.VIDEO_LENGTH_READ,
+        )
+        if self.feature_factory is not None:
+            return np.asarray(self.feature_factory(video_name),
+                              dtype=np.float32)
+        folder = osp.join(self.data_prefix_3d, video_name)
+        dims = {"Slow": 2048, "Fast": 256, "SlowFast": 2304}[self.feature_type]
+        feat = np.zeros((n, dims), dtype=np.float32)
+        for i in range(n):
+            parts = []
+            if self.feature_type in ("Slow", "SlowFast"):
+                parts.append(np.load(
+                    osp.join(folder, f"feature_{i}_slow_feature.npy")
+                ).reshape(-1))
+            if self.feature_type in ("Fast", "SlowFast"):
+                parts.append(np.load(
+                    osp.join(folder, f"feature_{i}_fast_feature.npy")
+                ).reshape(-1))
+            feat[i] = np.concatenate(parts)
+        return feat
+
+    def __getitem__(self, index: int, epoch: int = 0) -> dict:
+        data = super().__getitem__(index, epoch)
+        if "simpleVQA" in data:
+            data["feat"] = self._load_features(data["video_name"])
+        return data
+
+
 @DATASETS.register("GenericViewDataset")
 class GenericViewDataset(_ViewDatasetBase):
     def _read_annotations(self) -> None:
@@ -192,36 +298,13 @@ class GenericViewDataset(_ViewDatasetBase):
                     )
                 )
 
-    def __getitem__(self, index: int, epoch: int = 0) -> dict:
-        info = self.video_infos[index]
-        rng = self._rng(index, epoch)
-        is_train = self.phase == "train"
-        source = self.source_factory(info["filename"])
-        videos, frame_inds = decode_views(source, self._samplers(rng), is_train)
-
-        data: dict[str, Any] = {}
-        for stype, raw in videos.items():
-            sopt = _filter_view_opts(self.sample_types[stype])
-            view = V.get_single_view(raw, stype, rng=rng, **sopt)
-            # 0-255 ImageNet normalization (reference fusion_datasets.py:687-688)
-            data[stype] = V.normalize(view, "imagenet_255")
-
-        data["num_clips"] = {k: s["num_clips"] for k, s in self.sample_types.items()}
-        data["clip_len"] = {k: s["clip_len"] for k, s in self.sample_types.items()}
-        data["frame_inds"] = frame_inds
-        data["label"] = info["label"]
-        # global dataset position: lets sharded/mesh eval identify and
-        # dedupe rows without assuming device ordering
-        data["sample_index"] = int(index)
-        data["video_name"] = info["video_name"]
-        data["name"] = info["filename"]
-        return data
-
 
 # Reference-name aliases so unmodified reference YAML configs resolve.
 ViewDecompositionDataset_KVQ = KVQDataset
+ViewDecompositionDataset_add_forSimpleVQA = SimpleVQADataset
 ViewDecompositionDataset = GenericViewDataset
 DATASETS.register("ViewDecompositionDataset_KVQ")(KVQDataset)
+DATASETS.register("ViewDecompositionDataset_add_forSimpleVQA")(SimpleVQADataset)
 DATASETS.register("ViewDecompositionDataset")(GenericViewDataset)
 
 
@@ -233,8 +316,11 @@ def make_synthetic_opt(
     sample_types: dict | None = None,
     phase: str = "train",
     seed: int = 0,
+    with_features: bool = False,
 ) -> dict:
-    """Build a dataset opt backed by synthetic in-memory videos (hermetic)."""
+    """Build a dataset opt backed by synthetic in-memory videos (hermetic);
+    ``with_features`` adds SimpleVQADataset's synthetic SlowFast features,
+    one seeded row per frame of the sampled clip."""
     ann = [
         dict(
             filename=f"synthetic_{i}.mp4",
@@ -259,6 +345,13 @@ def make_synthetic_opt(
             n_frames, height, width, seed=zlib.crc32(path.encode()) % (2**31)
         ),
     }
+    if with_features:
+        n_feat = next(iter(st.values()), {}).get("clip_len", 8)
+        opt["feature_factory"] = lambda name: np.random.default_rng(
+            zlib.crc32(name.encode()) % (2**31)
+        ).normal(size=(n_feat, 2304)).astype(np.float32)
+        opt["data_prefix_3D"] = ""
+        opt["feature_type"] = "SlowFast"
     return opt
 
 

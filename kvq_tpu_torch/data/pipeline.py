@@ -9,8 +9,8 @@ The ``Loader`` yields collated batches: numpy arrays for the views and
 scalars, lists for metadata (``video_name``, ``num_clips``).  An eval batch
 is padded to the eval batch size and clip-reshaped; a train batch, the
 fields its model keys read (:func:`train_fields`: KSVQE's ``fragment``,
-``resize_video``, ``label``, ``dis_label``; a Swin key's ``technical`` and
-``label``), is neither (:func:`train_host_tensors`).  Both are pre-cast on
+``resize_video``, ``label``, ``dis_label``; SimpleVQA's ``simpleVQA``,
+``feat``, ``label``; a Swin key's ``technical`` and ``label``), is neither (:func:`train_host_tensors`).  Both are pre-cast on
 a worker thread (:func:`prepared_in_background`) and copied ahead on a
 side stream (:func:`prefetch_to_device`).
 """
@@ -185,9 +185,11 @@ class Loader:
 
 
 def _s2d_input(config: dict) -> bool:
+    """The model's ``backbone.s2d_input`` (a key's hypers and its backbone
+    may be empty in the YAML, as config/kwai_simpleVQA.yml's are)."""
     model = config["model"]
-    return bool(model.get("args", {}).get(model["type"], {})
-                .get("backbone", {}).get("s2d_input", False))
+    hypers = (model.get("args") or {}).get(model["type"]) or {}
+    return bool((hypers.get("backbone") or {}).get("s2d_input", False))
 
 
 def build_loaders(config: dict) -> tuple[Loader | None, Loader | None]:
@@ -302,17 +304,20 @@ def host_tensors(batch: dict, cast: torch.dtype | None,
 
 
 # The array fields a train step reads, by model key: KSVQE's views and its
-# distortion labels; a Swin-T-3D key's technical view.  Every key reads the
-# label.
+# distortion labels; SimpleVQA's view and SlowFast features; a Swin-T-3D
+# key's technical view.  Every key reads the label.
 KSVQE_TRAIN_FIELDS = ("fragment", "resize_video", "label", "dis_label")
+SIMPLEVQA_TRAIN_FIELDS = ("simpleVQA", "feat", "label")
 SWIN_TRAIN_FIELDS = ("technical", "label")
+_TRAIN_FIELDS = {"KSVQE": KSVQE_TRAIN_FIELDS,
+                 "simpleVQA": SIMPLEVQA_TRAIN_FIELDS}
 
 
 def train_fields(keys) -> tuple[str, ...]:
     """The batch fields a train step of the model keys ``keys`` reads."""
     fields: list[str] = []
     for key in keys:
-        own = KSVQE_TRAIN_FIELDS if key == "KSVQE" else SWIN_TRAIN_FIELDS
+        own = _TRAIN_FIELDS.get(key, SWIN_TRAIN_FIELDS)
         fields += [f for f in own if f not in fields]
     return tuple(fields)
 

@@ -1,9 +1,19 @@
 """Model composition — the counterpart of kvq_tpu/models/vqa_network.py and
 of the reference ``VQA_Network`` (models/model.py:18-121): one
-``<key>_backbone`` + ``<key>_head`` per key of ``config['model']['args']``.
-Ported keys: ``KSVQE`` and the Swin-T-3D keys ``swin_tiny``,
-``swin_tiny_grpb`` (FAST-VQA), ``swin_tiny_grpb_m`` and ``swin_small``, each
-with a VQAHead; ``conv_tiny`` and ``simpleVQA`` are not ported yet.
+``<key>_backbone`` + ``<key>_head`` per key of ``config['model']['args']``
+(:func:`build_head`, kvq_tpu/models/heads_util.py).  Ported keys:
+
+  - ``KSVQE`` and the Swin-T-3D keys ``swin_tiny``, ``swin_tiny_grpb``
+    (FAST-VQA), ``swin_tiny_grpb_m`` and ``swin_small``, each with a
+    VQAHead;
+  - ``simpleVQA``: :class:`~kvq_tpu_torch.nn.resnet.FeatureResNet`
+    (``backbone.layers``, default (3, 4, 6, 3)) with a SimpleVQAHead.
+
+Every head is as wide as its backbone's ``num_features`` (9472 for
+``simpleVQA``); ``head.in_channels`` is ignored, as the JAX package
+ignores it.
+
+``conv_tiny`` is not ported yet.
 
 :func:`build_model` is the eval entry point: it builds on ``device`` (CUDA
 by default), fills every parameter from a seeded ``torch.Generator`` and
@@ -11,7 +21,9 @@ casts to the config's ``compute_dtype``.  :func:`build_train_model` keeps
 the master parameters in float32, as flax keeps params f32 under a bf16
 ``dtype``; a training forward runs on :func:`compute_tensors`, copies in the
 compute dtype made inside autograd, so that the gradients reach the f32
-masters.
+masters.  The tensors that stay float32 (:func:`f32_names`) are not
+copied: a BatchNorm's running statistics are the module's own buffers, and
+its train-mode update lands there.
 """
 
 from __future__ import annotations
@@ -22,13 +34,15 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..nn.heads import VQAHead
+from ..nn.heads import SimpleVQAHead, VQAHead
 from ..nn.ksvqe import KSVQE, ksvqe_config
+from ..nn.resnet import BatchNorm, FeatureResNet
 from ..nn.swin import SWIN_KEYS, SwinTransformer3D, swin_config
 
 # parameters that stay float32 under a bf16 compute dtype, as the JAX
 # package keeps them: the position-bias tables (expanded to f32 planes) and
-# CONTRIQUE's projector (run in f32)
+# CONTRIQUE's projector (run in f32); and every tensor of a trainable
+# BatchNorm (flax's statistics, scale and bias are float32), see f32_names
 _F32_PARAMS = ("position_bias_table", "distortion_tool.projector.")
 
 
@@ -46,7 +60,22 @@ def build_backbone(key: str, hypers: dict | None):
         return KSVQE(ksvqe_config(bb))
     if key in SWIN_KEYS:
         return SwinTransformer3D(swin_config(key, bb))
+    if key == "simpleVQA":
+        return FeatureResNet(tuple(bb.get("layers", (3, 4, 6, 3))))
     raise NotImplementedError(f"model key {key!r} is not ported yet")
+
+
+def build_head(key: str, head_cfg: dict | None, in_channels: int):
+    """The reference's head of ``key`` (models/model.py:30-71): a
+    SimpleVQAHead for ``simpleVQA``, a VQAHead otherwise, ``in_channels``
+    wide: the backbone's width.  The config's ``head.in_channels`` is not
+    read, as flax infers the width from the input."""
+    head_cfg = head_cfg or {}
+    if key == "simpleVQA":
+        return SimpleVQAHead(in_channels,
+                             int(head_cfg.get("hidden_channels", 128)))
+    return VQAHead(in_channels=in_channels,
+                   hidden_channels=int(head_cfg.get("hidden_channels", 64)))
 
 
 class VQANetwork(nn.Module):
@@ -56,12 +85,9 @@ class VQANetwork(nn.Module):
         self.key_names = list(args.keys())
         for key, hypers in args.items():
             backbone = build_backbone(key, hypers)
-            head_cfg = (hypers or {}).get("head") or {}
             setattr(self, f"{key}_backbone", backbone)
-            setattr(self, f"{key}_head", VQAHead(
-                in_channels=backbone.num_features,
-                hidden_channels=int(head_cfg.get("hidden_channels", 64)),
-            ))
+            setattr(self, f"{key}_head", build_head(
+                key, (hypers or {}).get("head"), backbone.num_features))
 
     def forward(self, inputs: dict[str, Any], reduce_scores: bool = False,
                 gen=None):
@@ -119,37 +145,58 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             b.zero_()
 
 
-def _compute_dtype_of(name: str, t: torch.Tensor, dtype: torch.dtype):
-    if not t.is_floating_point() or any(k in name for k in _F32_PARAMS):
+def f32_names(model: nn.Module) -> set:
+    """The names of the parameters and buffers that stay float32 under a
+    bf16 compute dtype: those of ``_F32_PARAMS`` and every tensor of a
+    trainable :class:`~kvq_tpu_torch.nn.resnet.BatchNorm`."""
+    names = {n for n, _ in model.named_parameters()
+             if any(k in n for k in _F32_PARAMS)}
+    names |= {n for n, _ in model.named_buffers()
+              if any(k in n for k in _F32_PARAMS)}
+    for mod_name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            names |= {f"{mod_name}.{n}" for n in
+                      ("weight", "bias", "running_mean", "running_var")}
+    return names
+
+
+def _compute_dtype_of(name: str, t: torch.Tensor, dtype: torch.dtype,
+                      keep: set):
+    if not t.is_floating_point() or name in keep:
         return t.dtype
     return dtype
 
 
 def compute_tensors(model: nn.Module, dtype: torch.dtype,
-                    trainable_only: bool = False) -> dict:
-    """name -> the parameter or buffer in the compute dtype, the
-    ``_F32_PARAMS`` kept float32 (the casts of ``cast_model``, made out of
-    place and differentiable), for ``torch.func.functional_call``.  With
-    ``trainable_only``, only the parameters that require a gradient."""
+                    trainable_only: bool = False,
+                    keep: set | None = None) -> dict:
+    """name -> the parameter or buffer in the compute dtype, those of
+    :func:`f32_names` kept float32 (the casts of ``cast_model``, made out
+    of place and differentiable; a tensor already in its dtype is passed
+    as it is), for ``torch.func.functional_call``.  With
+    ``trainable_only``, only the parameters that require a gradient.
+    ``keep``: :func:`f32_names` of ``model``, when the caller holds it."""
+    keep = f32_names(model) if keep is None else keep
     out = {}
     for name, p in model.named_parameters():
         if p.requires_grad or not trainable_only:
-            out[name] = p.to(_compute_dtype_of(name, p, dtype))
+            out[name] = p.to(_compute_dtype_of(name, p, dtype, keep))
     if not trainable_only:
         for name, b in model.named_buffers():
-            out[name] = b.to(_compute_dtype_of(name, b, dtype))
+            out[name] = b.to(_compute_dtype_of(name, b, dtype, keep))
     return out
 
 
 def cast_model(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast to the compute dtype, keeping the float32 parameters of
-    ``_F32_PARAMS`` in float32."""
+    """Cast to the compute dtype, keeping the tensors of :func:`f32_names`
+    in float32."""
+    keep = f32_names(model)
     model.to(dtype)
     for name, p in model.named_parameters():
-        if any(k in name for k in _F32_PARAMS):
+        if name in keep:
             p.data = p.data.float()
     for name, b in model.named_buffers():
-        if any(k in name for k in _F32_PARAMS) and b.is_floating_point():
+        if name in keep and b.is_floating_point():
             b.data = b.data.float()
     return model
 

@@ -1,8 +1,15 @@
-"""VQAHead (counterpart of kvq_tpu/nn/heads.py:32; reference
-models/head.py:42-68): dropout -> 1x1x1 conv -> exact GELU -> dropout ->
-1x1x1 conv, mean over (T, H, W).  The convs keep the reference's Conv3d
-parameters and run as channels-last matmuls; the dropouts (rate 0.5) act
-in training only and draw from the caller's generator."""
+"""Regression heads (counterparts of kvq_tpu/nn/heads.py).
+
+  - :class:`VQAHead` (:32; reference models/head.py:42-68): dropout ->
+    1x1x1 conv -> exact GELU -> dropout -> 1x1x1 conv, mean over (T, H,
+    W).  The convs keep the reference's Conv3d parameters and run as
+    channels-last matmuls; the dropouts (rate 0.5) act in training only
+    and draw from the caller's generator.
+  - :class:`SimpleVQAHead` (:16-29; reference head.py:19-31): Linear(in,
+    hidden) -> Linear(hidden, 1) with no activation between them, mean over
+    frames; parameters ``quality.{0,1}``, as the reference's
+    ``simpleVQA_head``.
+"""
 
 from __future__ import annotations
 
@@ -33,3 +40,15 @@ class VQAHead(nn.Module):
         if self.num_class > 1:
             x = x.softmax(dim=-1)
         return x.mean(dim=(1, 2, 3))
+
+
+class SimpleVQAHead(nn.Module):
+    def __init__(self, in_channels: int = 9472, hidden_channels: int = 128):
+        super().__init__()
+        self.quality = nn.Sequential(nn.Linear(in_channels, hidden_channels),
+                                     nn.Linear(hidden_channels, 1))
+
+    def forward(self, x, gen=None):
+        # x: (B, T, in_channels), float32 features; the products run in the
+        # weights' dtype, as flax's Dense casts its input to its dtype
+        return self.quality(x.to(self.quality[0].weight.dtype)).mean(dim=1)

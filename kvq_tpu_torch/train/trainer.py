@@ -64,6 +64,7 @@ from ..models.vqa_network import (
     cast_model,
     compute_dtype,
     compute_tensors,
+    f32_names,
 )
 from .evaluator import Evaluator
 from .losses import total_loss
@@ -123,15 +124,18 @@ class Trainer:
     # ------------------------------------------------------------------ steps
     def _compute_tensors(self) -> dict:
         """The forward's parameters and buffers in the compute dtype.  The
-        frozen ones never change, so their casts are made once."""
+        frozen ones never change, so their casts are made once; the float32
+        buffers (BatchNorm's running statistics) are the module's own, so
+        a train-mode forward updates them in place, once a step."""
         if self._frozen is None:
+            self._keep = f32_names(self.model)
             trainable = {n for n, p in self.model.named_parameters()
                          if p.requires_grad}
-            self._frozen = {n: t for n, t in
-                            compute_tensors(self.model, self.dtype).items()
-                            if n not in trainable}
-        return {**self._frozen, **compute_tensors(self.model, self.dtype,
-                                                  trainable_only=True)}
+            self._frozen = {n: t for n, t in compute_tensors(
+                self.model, self.dtype, keep=self._keep).items()
+                if n not in trainable}
+        return {**self._frozen, **compute_tensors(
+            self.model, self.dtype, trainable_only=True, keep=self._keep)}
 
     def _step(self, dev: dict) -> dict:
         """One train step on a device-resident batch; returns the loss

@@ -359,8 +359,10 @@ def test_kvq_dataset_reads_the_annotation_file_like_jax(tmp_path):
     _same_item(ja[1], pa[1])
     assert DATASETS.get("ViewDecompositionDataset_KVQ") is PD.KVQDataset
     assert DATASETS.get("ViewDecompositionDataset") is PD.GenericViewDataset
+    assert DATASETS.get("ViewDecompositionDataset_add_forSimpleVQA") is \
+        PD.SimpleVQADataset
     with pytest.raises(KeyError, match="available"):
-        DATASETS.get("ViewDecompositionDataset_add_forSimpleVQA")
+        DATASETS.get("ViewDecompositionDataset_forNoModel")
 
 
 def test_generic_view_dataset_matches_jax():
