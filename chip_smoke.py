@@ -2,7 +2,8 @@
 """Runs the port's main paths — KSVQE eval scoring, Swin-T-3D eval scoring
 (the swin_tiny_grpb model key), KSVQE training and swin_tiny_grpb training,
 then KSVQE scoring and training through the CLIs, then SimpleVQA scoring,
-training and its path from mp4 files — on one NVIDIA GPU.
+training and its path from mp4 files, then the data-parallel paths — on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -91,7 +92,22 @@ training and its path from mp4 files — on one NVIDIA GPU.
    config/kwai_simpleVQA.yml pointed at them (steps/s, videos/s, the
    Loader alone, the host's ms per video by stage with cv2's decode, the
    card's idle share);
-15. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
+15. runs the data-parallel paths (``kvq_tpu_torch/parallel/``): (a) KSVQE
+   training as in step 8 through the Trainer's DDP route in a one-rank NCCL
+   group, one step against the one-process step (loss and every gradient),
+   the gradient all-reduce timed alone, timed steps with K4 10 + 10 and K5
+   2 + 2 launches a step; (b) SimpleVQA training on two gloo ranks sharing
+   the card (this script again with ``--rank-worker``; NCCL refuses two
+   ranks on one GPU), the BatchNorms synced, in f32 with TF32 off, its
+   first step against a one-process B=8 emulation (loss, running
+   statistics, reduced gradients) and the ranks' parameters bit-equal after
+   the timed steps; (c) KSVQE through ``cli.test.run`` on two gloo ranks
+   over the 16 val mp4s of step 14: rank 0's gathered output.txt in the
+   one-process order, the scores within SCORE_TOL, 12 K1 + 9 K2 launches a
+   forward; (d) ``torchrun --standalone --nproc_per_node 1 -m
+   kvq_tpu_torch.cli.train --ddp`` on step 11's config over 8 + 4 of those
+   mp4s: its exit code, steps/s and first metrics record;
+16. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
    records, and as its last line ``{"ok": true, "device": {...}}``.
 
 The videos of steps 10 and 11 are synthetic (the config's
@@ -1057,11 +1073,13 @@ def make_batch(rng, i: int) -> dict:
 
 FAMILIES = ("kvq_window_attention", "kvq_attention_bwd", "kvq_gemm",
             "kvq_layernorm", "kvq_train_other", "kvq_nobias_attention",
-            "conv (cuDNN)", "matmul (cuBLAS)", "other")
+            "conv (cuDNN)", "matmul (cuBLAS)", "nccl", "other")
 
 
 def _family(name: str) -> str:
     low = name.lower()
+    if "nccl" in low:  # the collectives' kernels
+        return "nccl"
     if "flash_attention_kernel" in name:
         return ("kvq_window_attention" if "true" in low
                 else "kvq_nobias_attention")
@@ -2800,7 +2818,6 @@ def svqa_files_path(card: str) -> dict:
     if not max(d / (SCORE_TOL * max(1.0, abs(want[n])))
                for d, (n, _) in zip(diffs, results)) <= 1.0:
         fail("cli.test (SimpleVQA): scores disagree with the Evaluator's")
-    shutil.rmtree(root)
     phase_s = time.time() - t_phase
     print(f"SimpleVQA files phase: {phase_s:.1f} s", flush=True)
     return {"write_s": write_s, "slowfast": sf, "slowfast_s": sf_s,
@@ -2815,7 +2832,546 @@ def svqa_files_path(card: str) -> dict:
             "loader_videos_per_s": n_val / loader_s, "host_ms": host_ms,
             "device_busy_ms": prof["device_ms"], "idle_share": idle,
             "families_ms": prof["families_ms"],
-            "max_abs_score_diff": max(diffs), "phase_s": phase_s}
+            "max_abs_score_diff": max(diffs), "phase_s": phase_s,
+            "files": {"root": root, "videos": vids, "splits": splits}}
+
+
+# --------------------------------------------------------------------------
+# Data-parallel (kvq_tpu_torch/parallel/): the DDP step over NCCL at one
+# rank; two ranks sharing the one card over gloo (NCCL refuses two ranks on
+# one GPU): SimpleVQA's synced-BatchNorm step and the gathered KSVQE
+# cli.test; the user's torchrun launch of cli.train
+
+DDP_TIMEOUT = 300      # seconds a spawned rank or torchrun may take
+SVQA_DDP_STEPS = 3     # timed two-rank steps after the compared one
+DDP_SEED = 12          # the two-rank SimpleVQA batches: every rank makes them
+GRAD_FLOOR = 1e-2      # of the largest gradient: the least scale of one
+SVQA_F64_B, SVQA_F64_T = 4, 2  # the float64 check's videos a rank, frames
+# its reduced gradients against a float64 emulation: the model's pools run
+# in f32 (nn/layers.py:avg_std_pool) even in float64, so the two carry f32
+# roundoff of the pooled features and their cotangents
+SVQA_F64_TOL = 1e-5
+DDP_RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_ddp_path(card: str) -> dict:
+    """(a) KSVQE training at full width (B=4, T=32, random parts on)
+    through the Trainer's DDP route in a one-rank NCCL group: one step
+    against the one-process Trainer's on the same batch and seed (loss and
+    every gradient), the gradient all-reduce timed alone, then timed steps
+    that must launch K4 10 + 10 and K5 2 + 2 a step."""
+    import torch
+    import torch.distributed as dist
+
+    from kvq_tpu_torch.parallel import init_distributed
+    from kvq_tpu_torch.parallel.steps import reduce_gradients
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    try:
+        dev = init_distributed("cuda")
+        backend = dist.get_backend()
+        rng = np.random.default_rng(11)
+        batches = [make_train_batch(rng, i) for i in range(TRAIN_STEPS + 1)]
+        td = Trainer(dict(TRAIN_CONFIG, ddp=True), device=dev, seed=0,
+                     steps_per_epoch=100)
+        tp = Trainer(TRAIN_CONFIG, device=dev, seed=0, steps_per_epoch=100)
+        if not td.ddp or tp.ddp or backend != "nccl":
+            fail(f"DDP route: ddp {td.ddp}, plain {tp.ddp}, {backend}")
+        aux_d, aux_p = td.train_step(batches[0]), tp.train_step(batches[0])
+        d_loss = max(abs(aux_d[k] - aux_p[k]) for k in aux_p)
+        d_grad = max((a.grad - b.grad).abs().max().item()
+                     for a, b in zip(td.params, tp.params)
+                     if b.grad is not None)
+        print(f"DDP step ({backend}, 1 rank) vs the one-process step, same "
+              f"batch and seed: max|d| loss {d_loss:.3g}, gradients "
+              f"{d_grad:.3g} (expected 0; K4's and K5's backward sum with "
+              f"atomics)", flush=True)
+        agree = step_agreement("DDP step (NCCL, 1 rank) vs one-process step",
+                               td, tp, aux_d, aux_p, "KSVQE_backbone.layers.")
+        del tp
+        torch.cuda.empty_cache()
+        n_grad = sum(p.numel() for p in td.params if p.requires_grad)
+        ar_ms = cuda_ms(lambda: reduce_gradients(td.params), 5)
+        ar_prof = profile_device(lambda: reduce_gradients(td.params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        last = td.train_epoch(batches[1:])
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = TRAIN_STEPS
+        print(f"DDP train path (NCCL, 1 rank): {steps} steps in {wall:.3f} s "
+              f"= {steps / wall:.3f} steps/s (B={TRAIN_B}, T={TRAIN_T}); the "
+              f"gradient all-reduce of {n_grad} f32 gradients "
+              f"({n_grad * 4 / 1e6:.1f} MB, buckets of 25 MiB): {ar_ms:.3f} "
+              f"ms (CUDA events), device {ar_prof['device_ms']:.3f} ms by "
+              f"family {json.dumps(ar_prof['families_ms'])}, "
+              f"{ar_prof['launch_calls']} launch calls; launches {counts}; "
+              f"peak memory {peak / 2 ** 30:.3f} GiB (the flat buckets "
+              f"included); last losses {last}; {card}", flush=True)
+        want = dict(NO_LAUNCHES, train_swin_block=10 * steps,
+                    train_swin_block_bwd=10 * steps,
+                    window_attention_train=2 * steps,
+                    window_attention_train_bwd=2 * steps)
+        if counts != want:
+            fail(f"DDP route: expected 10 + 10 K4 and 2 + 2 K5 launches a "
+                 f"step, got {counts}")
+        if not all(map(math.isfinite, last.values())):
+            fail(f"DDP route: losses not finite: {last}")
+        prof = step_timings(td, batches[1], wall / steps * 1e3, card)
+        del td
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in DDP_RANK_ENV:
+            os.environ.pop(k, None)
+    prof.pop("top_host_ops", None)
+    return {"backend": backend, "max_abs_loss_diff": d_loss,
+            "max_abs_grad_diff": d_grad, "agreement": agree,
+            "steps_per_s": steps / wall, "launches": counts,
+            "per_step": {k: v // steps for k, v in counts.items()},
+            "allreduce_ms": ar_ms, "allreduce_profile": ar_prof,
+            "gradients": n_grad, "peak_memory_bytes": peak, "last": last,
+            "profile": prof}
+
+
+def spawn_ranks(job: str, root: str, n: int = 2) -> list[dict]:
+    """``n`` ranks of ``rank_worker(job)`` (this script with
+    ``--rank-worker``) on the one card, a gloo group through a file
+    rendezvous under ``root``; waits for all (DDP_TIMEOUT), kills the rest
+    when one fails, and returns each rank's JSON result."""
+    rdv = os.path.join(root, f"{job}.rendezvous")
+    logs = [open(os.path.join(root, f"{job}.rank{r}.log"), "w")
+            for r in range(n)]
+    env = {k: v for k, v in os.environ.items() if k not in DDP_RANK_ENV}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker", job,
+         str(r), str(n), rdv, root], stdout=log, stderr=subprocess.STDOUT,
+        env=env, cwd=ROOT) for r, log in enumerate(logs)]
+    deadline = time.monotonic() + DDP_TIMEOUT
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs) and failed is None:
+            failed = next((r for r, p in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            if time.monotonic() > deadline:
+                failed = "timeout"
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    for r in range(n):
+        with open(os.path.join(root, f"{job}.rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        if failed is not None or procs[r].returncode != 0:
+            print(f"--- {job} rank {r} (exit {procs[r].returncode}):\n{tail}",
+                  flush=True)
+    if failed is not None or any(p.returncode != 0 for p in procs):
+        fail(f"{job}: a rank failed ({failed})")
+    out = []
+    for r in range(n):
+        with open(os.path.join(root, f"{job}.rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _svqa_ddp_config() -> dict:
+    """config/kwai_simpleVQA.yml's model and schedule in float32, ddp on."""
+    cfg = {k: v for k, v in svqa_config().items() if k != "data"}
+    cfg = json.loads(json.dumps(cfg))
+    cfg["model"]["compute_dtype"] = "float32"
+    return dict(cfg, ddp=True)
+
+
+def _svqa_ddp_batches(b: int) -> list[dict]:
+    """The two-rank cell's batches of 2 x ``b`` (rank r takes rows r*b to
+    (r+1)*b), the same in every process."""
+    rng = np.random.default_rng(DDP_SEED)
+    return [make_svqa_batch(rng, i, 2 * b) for i in range(SVQA_DDP_STEPS + 1)]
+
+
+def _grad_gaps(want: dict, got: dict) -> tuple:
+    """Each gradient's max|d| over its tensor's largest magnitude, the
+    scale floored at GRAD_FLOOR of the model's largest gradient (PLCC is
+    blind to a shift of the scores, so the head's biases, Linear ->
+    Linear, have gradient 0 and hold only roundoff): (the rows (ratio,
+    name, max|want|), worst first, the floor, how many were floored)."""
+    floor = GRAD_FLOOR * max(g.abs().max().item() for g in want.values())
+    if not floor > 0:
+        fail("every gradient of the reference is 0")
+    rows = sorted((((got[n] - g).abs().max().item()
+                    / max(g.abs().max().item(), floor)), n,
+                   g.abs().max().item()) for n, g in want.items())[::-1]
+    return rows, floor, sum(m < floor for _, _, m in rows)
+
+
+def _show(rows) -> list:
+    return [(float(f"{r:.3g}"), n, float(f"{m:.3g}")) for r, n, m in rows]
+
+
+def _svqa_f64_batch() -> dict:
+    """The float64 check's batch: 2 x SVQA_F64_B videos of SVQA_F64_T
+    frames at 448x448 (the views' own scale, up to ~1113)."""
+    return make_svqa_batch(np.random.default_rng(DDP_SEED + 1), 0,
+                           2 * SVQA_F64_B, t=SVQA_F64_T)
+
+
+def _svqa_f64_grads(cfg: dict, init: dict, batch: dict, parts: list,
+                    ddp: bool = False) -> dict:
+    """Float64 gradients of SimpleVQA from the state ``init``: the mean of
+    total_loss over the row slices ``parts`` of ``batch``; with ``ddp``
+    through the DDP step's pieces (synced BatchNorm, the state broadcast,
+    the gradient all-reduce)."""
+    import torch
+
+    from kvq_tpu_torch.models.vqa_network import VQANetwork
+    from kvq_tpu_torch.nn.resnet import sync_batchnorm
+    from kvq_tpu_torch.parallel.steps import broadcast_state, reduce_gradients
+    from kvq_tpu_torch.train.losses import total_loss
+
+    with torch.device("cuda", torch.cuda.current_device()):
+        net = VQANetwork(cfg)
+    net.load_state_dict(init)
+    net = net.double().train()
+    if ddp:
+        sync_batchnorm(net)
+        broadcast_state(net)
+    dev = {k: torch.from_numpy(np.asarray(batch[k])).cuda().double()
+           for k in ("simpleVQA", "feat", "label")}
+    scores = net(dev)[0]
+    loss = sum(total_loss([scores[p]], dev["label"][p], None)[0]
+               for p in parts) / len(parts)
+    loss.backward()
+    if ddp:
+        reduce_gradients(net.parameters())
+    return {n: p.grad.cpu() for n, p in net.named_parameters()}
+
+
+def svqa_ddp_path(card: str) -> dict:
+    """(b) SimpleVQA training at the config's per-rank B=4, T=8, 448x448 on
+    two gloo ranks sharing the one card, the BatchNorms synced, in float32
+    with TF32 off: the first step against a one-process emulation on the
+    card (one B=8 forward in train mode, the mean of the two halves'
+    total_loss): the loss within SVQA_TRAIN_TOL relative, each running
+    statistic within SVQA_TRAIN_TOL of its tensor's largest magnitude, each
+    reduced gradient within TRAIN_GRAD_TOL; then SVQA_DDP_STEPS timed
+    steps, after which the ranks' parameters must be bit-equal.  The same
+    step's pieces in float64 (per rank B=SVQA_F64_B, T=SVQA_F64_T) against
+    a float64 emulation: each reduced gradient within SVQA_F64_TOL.  In
+    f32 this network's gradients at the views' scale sit percents from
+    f64 on one process already (PERF.md §6): f64 is where the
+    step's gradient is held tight."""
+    import torch
+
+    from kvq_tpu_torch.train.losses import total_loss
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    cfg = _svqa_ddp_config()
+    b = int(cfg["batch_size"])
+    batch = _svqa_ddp_batches(b)[0]
+    root = tempfile.mkdtemp(prefix="kvq_ddp_svqa_")
+    with tf32(False):
+        te = Trainer(cfg, device="cuda", seed=0, steps_per_epoch=100)
+        init = {k: v.cpu() for k, v in te.model.state_dict().items()}
+        torch.save(init, os.path.join(root, "init.pt"))
+        _, host = te._prepare(batch)
+        dev = {k: v.cuda() for k, v in host.items()}
+        te.model.train()
+        scores = te.model(dev, gen=te.gen)[0]
+        halves = [total_loss([scores[r * b:(r + 1) * b]],
+                             dev["label"][r * b:(r + 1) * b], None)[0]
+                  for r in range(2)]
+        loss = (halves[0] + halves[1]) / 2
+        loss.backward()
+        emu_loss = loss.item()
+        emu_grads = {n: p.grad.cpu() for n, p in te.model.named_parameters()}
+        emu_stats = {n: (m.cpu(), v.cpu(), k)
+                     for n, (m, v, k) in _bn_stats(te.model).items()}
+    del te, dev, host, scores, halves, loss
+    torch.cuda.empty_cache()
+    fb = SVQA_F64_B
+    emu64 = _svqa_f64_grads(cfg, init, _svqa_f64_batch(),
+                            [slice(0, fb), slice(fb, 2 * fb)])
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("svqa_train", root)
+    r0 = ranks[0]
+    got = torch.load(os.path.join(root, "svqa_train.rank0.pt"))
+    gap = _stats_gap(emu_stats, got["stats"])
+    rel, floor, floored = _grad_gaps(emu_grads, got["grads"])
+    rel64, floor64, floored64 = _grad_gaps(emu64, got["grads64"])
+    dl = abs(r0["loss"] - emu_loss)
+    equal = [r["params_equal_rank0"] for r in ranks]
+    sps = min(r["steps_per_s"] for r in ranks)
+    print(f"SimpleVQA DDP (2 gloo ranks on one card, synced BatchNorm, f32, "
+          f"TF32 off, B={b} a rank, T={SVQA_T}, {SVQA_CROP}x{SVQA_CROP}) vs a "
+          f"one-process B={2 * b} emulation: loss {r0['loss']:.7f} vs "
+          f"{emu_loss:.7f}, |d| {dl:.3g} (tol "
+          f"{SVQA_TRAIN_TOL * abs(emu_loss):.3g}); running statistics, worst "
+          f"max|d| / max|emu| of a tensor {gap['per_tensor']:.3g} at "
+          f"{gap['per_tensor_at']} (tol {SVQA_TRAIN_TOL}); reduced f32 "
+          f"gradients, max|d| / max(max|emu|, {GRAD_FLOOR} x the largest = "
+          f"{floor:.3g}), {floored} of {len(rel)} floored, worst three "
+          f"(ratio, name, max|emu|) {_show(rel[:3])} (tol {TRAIN_GRAD_TOL}); "
+          f"in f64 (B={fb} a rank, T={SVQA_F64_T}), floor {floor64:.3g}, "
+          f"{floored64} floored, worst three {_show(rel64[:3])} (tol "
+          f"{SVQA_F64_TOL}); after {SVQA_DDP_STEPS + 1} steps the ranks' "
+          f"parameters bit-equal: {equal}; {SVQA_DDP_STEPS} steps at "
+          f"{sps:.3f} steps/s, two ranks sharing one card (not a scaling "
+          f"figure); peak memory a rank "
+          f"{[round(r['peak_memory_bytes'] / 2 ** 30, 3) for r in ranks]} "
+          f"GiB; {card}", flush=True)
+    if not dl <= SVQA_TRAIN_TOL * abs(emu_loss):
+        fail("SimpleVQA DDP: the loss disagrees with the emulation")
+    if not gap["per_tensor"] <= SVQA_TRAIN_TOL:
+        fail("SimpleVQA DDP: the running statistics disagree")
+    if not rel[0][0] <= TRAIN_GRAD_TOL:
+        fail("SimpleVQA DDP: the reduced f32 gradients disagree")
+    if not rel64[0][0] <= SVQA_F64_TOL:
+        fail("SimpleVQA DDP: the reduced f64 gradients disagree")
+    if not all(equal):
+        fail("SimpleVQA DDP: the ranks' parameters differ")
+    shutil.rmtree(root)
+    phase_s = time.time() - t_phase
+    print(f"SimpleVQA DDP phase: {phase_s:.1f} s", flush=True)
+    return {"loss": r0["loss"], "loss_emulation": emu_loss,
+            "loss_abs_diff": dl, "stats_gap": gap, "grad_worst": rel[:8],
+            "grad_f64_worst": rel64[:8], "params_equal": equal,
+            "steps_per_s": sps, "ranks": ranks, "phase_s": phase_s}
+
+
+def _ksvqe_files_config(files: dict, root: str) -> dict:
+    """config/Kwai_KSVQE.yml's model and schedule (ddp on) over mp4 files of
+    the SimpleVQA files cell: 8 train videos and the 16 val ones."""
+    def split(name, rows, phase, view):
+        with open(os.path.join(root, f"{name}.txt"), "w") as f:
+            f.writelines(f"{n},{i % 3},{i % 4},{s}\n"
+                         for i, (n, s) in enumerate(rows))
+        return {"type": "ViewDecompositionDataset_KVQ", "args": {
+            "phase": phase, "anno_file": os.path.join(root, f"{name}.txt"),
+            "data_prefix": files["videos"],
+            "sample_types": {"technical": dict(view)}}}
+
+    return {**json.loads(json.dumps(TRAIN_CONFIG)), "ddp": True,
+            "num_workers": 6, "data": {
+                "train": split("train", files["splits"]["train"][:8],
+                               "train", TRAIN_VIEW),
+                "val": split("val", files["splits"]["val"], "test",
+                             VAL_VIEW)}}
+
+
+def cli_ddp_path(card: str, files: dict) -> dict:
+    """(c) KSVQE scoring through ``cli.test.run`` on two gloo ranks sharing
+    the one card, over the 16 val mp4s of the SimpleVQA files cell (seeded
+    weights): rank 0's output.txt has the one-process run's names in the
+    same order, the scores within SCORE_TOL; K1 and K2 run in each rank's
+    forwards."""
+    from kvq_tpu_torch.cli import test as cli_test
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="kvq_ddp_cli_")
+    cfg = _ksvqe_files_config(files, root)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    ref = cli_test.run(cfg, os.path.join(root, "ref.txt"), device="cuda")
+    one_s = time.perf_counter() - t0
+    ranks = spawn_ranks("cli_test", root)
+    with open(os.path.join(root, "output.txt")) as f:
+        lines = [ln.rsplit(",", 1) for ln in f.read().splitlines()]
+    names = [n for n, _ in lines]
+    diffs = [abs(float(s) - r) for (_, s), (_, r) in zip(lines, ref)]
+    n = len(ref)
+    per_rank = -(-n // 2)  # each rank's forwards: its shard of the list
+    wall = max(r["wall_s"] for r in ranks)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    print(f"cli.test.run on 2 gloo ranks sharing one card (KSVQE, {n} mp4 "
+          f"files of {CLI_FRAMES} frames, {CLI_W}x{CLI_H}): output.txt "
+          f"{len(lines)} rows, names in the one-process order: "
+          f"{names == [m for m, _ in ref]}; scores max|d| {max(diffs):.3g} "
+          f"(tol {SCORE_TOL}); {n / wall:.3f} videos/s (the slower rank's "
+          f"run, {wall:.3f} s) against one process's {n / one_s:.3f}; "
+          f"launches over both ranks ({per_rank} forwards each) {launches}; "
+          f"{card}", flush=True)
+    if names != [m for m, _ in ref] or os.path.exists(
+            os.path.join(root, "output.rank1.txt")):
+        fail("cli.test on 2 ranks: output.txt is not the one-process one")
+    if not max(d / (SCORE_TOL * max(1.0, abs(r)))
+               for d, (_, r) in zip(diffs, ref)) <= 1.0:
+        fail("cli.test on 2 ranks: the scores disagree")
+    if launches != dict(NO_LAUNCHES, fused_swin_block=12 * 2 * per_rank,
+                        flash_attention_nobias_cl=9 * 2 * per_rank):
+        fail(f"cli.test on 2 ranks: expected 12 K1 + 9 K2 a forward, got "
+             f"{launches}")
+    shutil.rmtree(root)
+    phase_s = time.time() - t_phase
+    print(f"cli.test DDP phase: {phase_s:.1f} s", flush=True)
+    return {"videos_per_s": n / wall, "one_process_videos_per_s": n / one_s,
+            "max_abs_score_diff": max(diffs), "launches": launches,
+            "ranks": ranks, "phase_s": phase_s}
+
+
+def torchrun_path(card: str, files: dict) -> dict:
+    """(d) The user's launch: ``torchrun --standalone --nproc_per_node 1 -m
+    kvq_tpu_torch.cli.train -o <config> --ddp`` on cli_train_path's config
+    (config/Kwai_KSVQE.yml's model and schedule, ddp on) over 8 train and
+    16 val mp4s, one epoch, as a subprocess; its exit code, steps/s and the
+    first record of its metrics file."""
+    import yaml
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="kvq_torchrun_")
+    cfg = _ksvqe_files_config(files, root)
+    cfg["data"]["val"]["args"]["anno_file"] = os.path.join(root, "val4.txt")
+    with open(os.path.join(root, "val.txt")) as f:
+        rows = f.readlines()[:4]
+    with open(os.path.join(root, "val4.txt"), "w") as f:
+        f.writelines(rows)
+    path = os.path.join(root, "ksvqe.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    work = os.path.join(root, "work")
+    launcher = shutil.which("torchrun")
+    cmd = ([launcher] if launcher else
+           [sys.executable, "-m", "torch.distributed.run"]) + [
+        "--standalone", "--nproc_per_node", "1", "-m",
+        "kvq_tpu_torch.cli.train", "-o", path, "-r", work, "--ddp",
+        "--epochs", "1", "--seed", "0", "--log_dir", work]
+    env = {k: v for k, v in os.environ.items() if k not in DDP_RANK_ENV}
+    log = os.path.join(ROOT, "chiprun_out", "torchrun.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        try:
+            rc = subprocess.run(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                env=env, cwd=ROOT,
+                                timeout=DDP_TIMEOUT).returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    epoch = [ln for ln in text.splitlines() if ln.startswith("epoch 0")]
+    metrics = os.path.join(work, "KSVQE_metrics.jsonl")
+    first = None
+    if os.path.exists(metrics):
+        with open(metrics) as f:
+            first = json.loads(f.readline())
+    files_out = sorted(os.listdir(work)) if os.path.isdir(work) else []
+    if rc != 0 or first is None:
+        print(text[-4000:], flush=True)
+        fail(f"torchrun cli.train: exit {rc}, metrics record {first}")
+    sps = first["step"] / first["time_s"]
+    print(f"torchrun ({' '.join(cmd[:5])} ... -m kvq_tpu_torch.cli.train "
+          f"--ddp): exit {rc} in {wall:.1f} s; files {files_out}; the first "
+          f"metrics record {first}: {sps:.3f} steps/s from the Trainer built "
+          f"to the epoch's losses (the Loader's fill included); its epoch "
+          f"line: {epoch}; {card}", flush=True)
+    shutil.rmtree(root)
+    return {"exit": rc, "wall_s": wall, "first_record": first,
+            "steps_per_s": sps,
+            "epoch_line": epoch, "files": files_out,
+            "phase_s": time.time() - t_phase}
+
+
+def rank_worker(argv) -> int:
+    """One rank of a two-rank phase: ``JOB RANK WORLD RENDEZVOUS ROOT``.
+    Joins the gloo group on cuda:0, runs the job, writes
+    ``ROOT/JOB.rank{RANK}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from kvq_tpu_torch.parallel import init_distributed
+
+    job, rank, world, rdv, root = argv
+    os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank)
+    init_distributed("cuda:0", backend="gloo", init_method=f"file://{rdv}")
+    try:
+        out = {"svqa_train": _rank_svqa_train,
+               "cli_test": _rank_cli_test}[job](int(rank), root)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"{job}.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.cuda.synchronize()
+    return 0
+
+
+def _rank_svqa_train(rank: int, root: str) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    cfg = _svqa_ddp_config()
+    b = int(cfg["batch_size"])
+    mine = [{k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+            for batch in _svqa_ddp_batches(b)]
+    with tf32(False):
+        tr = Trainer(cfg, device="cuda:0", seed=0, steps_per_epoch=100)
+        tr.model.load_state_dict(torch.load(os.path.join(root, "init.pt")))
+        torch.cuda.reset_peak_memory_stats()
+        aux = tr.train_step(mine[0])
+        stats = {n: (m.cpu(), v.cpu(), k)
+                 for n, (m, v, k) in _bn_stats(tr.model).items()}
+        grads = {n: p.grad.cpu() for n, p in tr.model.named_parameters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = tr.train_epoch(mine[1:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    flat = torch.cat([p.detach().reshape(-1) for p in tr.params])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    equal = bool(torch.equal(flat, ref))
+    del tr, flat, ref
+    torch.cuda.empty_cache()
+    fb = SVQA_F64_B
+    init = torch.load(os.path.join(root, "init.pt"))
+    rows = slice(rank * fb, (rank + 1) * fb)
+    grads64 = _svqa_f64_grads(cfg, init, {k: v[rows] for k, v in
+                                          _svqa_f64_batch().items()},
+                              [slice(0, fb)], ddp=True)
+    if rank == 0:
+        torch.save({"stats": stats, "grads": grads, "grads64": grads64},
+                   os.path.join(root, "svqa_train.rank0.pt"))
+    return {"loss": aux["total_loss"], "last": last,
+            "steps_per_s": SVQA_DDP_STEPS / wall,
+            "params_equal_rank0": equal, "peak_memory_bytes": peak}
+
+
+def _rank_cli_test(rank: int, root: str) -> dict:
+    from kvq_tpu_torch.cli import test as cli_test
+
+    with open(os.path.join(root, "config.json")) as f:
+        cfg = json.load(f)
+    out = os.path.join(root, "output.txt" if rank == 0 else
+                       f"output.rank{rank}.txt")
+    reset_counts()
+    t0 = time.perf_counter()
+    results = cli_test.run(cfg, out, device="cuda:0")
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall, "results": len(results),
+            "launches": kernel_counts()}
 
 
 def first_line(cmd) -> str:
@@ -2859,6 +3415,8 @@ def host_packages() -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-worker"]:  # a rank of a two-rank phase
+        return rank_worker(sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -2913,6 +3471,12 @@ def main() -> int:
     svqa_eval = svqa_eval_path(card)
     svqa_train = svqa_train_path(card)
     svqa_files = svqa_files_path(card)
+    files = svqa_files.pop("files")
+    ddp_nccl = nccl_ddp_path(card)
+    ddp_svqa = svqa_ddp_path(card)
+    ddp_cli = cli_ddp_path(card, files)
+    ddp_torchrun = torchrun_path(card, files)
+    shutil.rmtree(files["root"])
 
     def record(name, source, replaces, agg, launches, lib,
                per="the calls of one forward"):
@@ -2986,6 +3550,9 @@ def main() -> int:
                "the nine CDM calls of one KSVQE forward, head-major (no "
                "model path)"),
     ]
+    for rec in kernels:  # data-parallel runs: (a)'s steps, (c)'s two ranks
+        rec["launches_data_parallel"] = (ddp_nccl["launches"][rec["name"]]
+                                         + ddp_cli["launches"][rec["name"]])
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "k1_rows": k1["rows"], "k2_rows": k2["rows"],
                    "k4_fwd_rows": k4f["rows"], "k4_bwd_rows": k4b["rows"],
@@ -3003,6 +3570,8 @@ def main() -> int:
                    "simplevqa_eval": svqa_eval,
                    "simplevqa_train": svqa_train,
                    "simplevqa_files": svqa_files,
+                   "ddp_nccl": ddp_nccl, "ddp_simplevqa": ddp_svqa,
+                   "ddp_cli_test": ddp_cli, "ddp_torchrun": ddp_torchrun,
                    "kernels": kernels}, f,
                   indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line

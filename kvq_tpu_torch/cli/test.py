@@ -2,6 +2,8 @@
 
     python -m kvq_tpu_torch.cli.test -o config/Kwai_KSVQE_test.yml \
         [-out output.txt] [--csv prediction.csv] [--device cpu]
+    torchrun --standalone --nproc_per_node N -m kvq_tpu_torch.cli.test \
+        -o config/Kwai_KSVQE_test.yml
 
 Runs the config's ``data.val`` split through the port's dataset, the
 ``Loader`` and the :class:`~kvq_tpu_torch.train.evaluator.Evaluator` on the
@@ -11,17 +13,21 @@ prediction CSV of ``metric_score`` with its header.  The weights are
 ``test_load_path``'s, else ``load_path``'s: a reference ``.pth``, a port
 ``.pt``, or a file the JAX package wrote (``kvq_tpu.cli.convert``'s
 output, a ``*_finetuned.msgpack``, or a full ``_last_state.msgpack``, of
-which the params and batch_stats are taken), told apart by content.  :func:`run` takes the config
-as a dict, for callers without PyYAML.
+which the params and batch_stats are taken), told apart by content.
+Under torchrun each rank scores its own shard of the split and rank 0
+writes the gathered rows, in the split's order (``train/evaluator.py``).
+:func:`run` takes the config as a dict, for callers without PyYAML.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from ..core.config import load_config, normalize_config
-from ..core.device import resolve_device
 from ..data.pipeline import build_loaders
+from ..parallel import launch, rank
 from ..train.evaluator import Evaluator
 
 
@@ -37,21 +43,24 @@ def parse_args(argv=None):
     p.add_argument("-out", "--output", default="output.txt")
     p.add_argument("--csv", default=None, help="also write prediction csv")
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu")
+                   help="cuda (default: cuda:LOCAL_RANK under torchrun) or "
+                   "cpu")
     return p.parse_args(argv)
 
 
 def run(config: dict, output: str = "output.txt", csv: str | None = None,
         device="cuda") -> list[tuple[str, float]]:
     """Score the config's val split; returns ``(video_name, score)`` in
-    the split's order."""
-    device = resolve_device(device)
+    the split's order (every rank's rows under torchrun)."""
+    device = launch(device)
     config = normalize_config(config)
     _, val_loader = build_loaders(config)
     if val_loader is None:
         raise ValueError("the config has no data.val split to score")
     evaluator = Evaluator(config, device=device)
     results = evaluator.inference_test(val_loader.epoch(0), output)
+    if rank() != 0:
+        return results
     if csv:
         with open(csv, "w") as f:
             f.write("filename,score\n")
@@ -63,7 +72,11 @@ def run(config: dict, output: str = "output.txt", csv: str | None = None,
 
 def main(argv=None):
     args = parse_args(argv)
-    return run(load_config(args.opt), args.output, args.csv, args.device)
+    try:
+        return run(load_config(args.opt), args.output, args.csv, args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.registry import DATASETS
+from ..parallel.sharding import loader_shard
 from . import datasets  # noqa: F401  (registers the dataset classes)
 
 # fields collate stacks whatever their type (kvq_tpu/data/pipeline.py)
@@ -192,13 +193,18 @@ def _s2d_input(config: dict) -> bool:
     return bool((hypers.get("backbone") or {}).get("s2d_input", False))
 
 
-def build_loaders(config: dict) -> tuple[Loader | None, Loader | None]:
+def build_loaders(config: dict, shard: tuple[int, int] | None = None
+                  ) -> tuple[Loader | None, Loader | None]:
     """``(train, val)`` Loaders of ``config['data']`` (None for a split the
     config lacks), as the JAX trainer builds them: the dataset class by its
     registered ``type``; the model's ``s2d_input`` asks both splits for
     s2d-packed fragments; train batches of ``batch_size``, shuffled by
     ``seed``, the short last one dropped; val batches of
-    ``eval_batch_size`` (else 1), in order; ``num_workers`` threads."""
+    ``eval_batch_size`` (else 1), in order; ``num_workers`` threads; both
+    read ``shard`` = (index, count) of the list, by default this rank's
+    (``parallel.loader_shard()``: (0, 1) without a process group)."""
+    if shard is None:
+        shard = loader_shard()
     data_cfg = config["data"]
     nw = int(config.get("num_workers", 6))
     s2d = _s2d_input(config)
@@ -213,11 +219,12 @@ def build_loaders(config: dict) -> tuple[Loader | None, Loader | None]:
     if "train" in data_cfg:
         train = Loader(dataset("train"), batch_size=int(config["batch_size"]),
                        shuffle=True, num_workers=nw,
-                       seed=int(config.get("seed", 42)), drop_last=True)
+                       seed=int(config.get("seed", 42)), drop_last=True,
+                       shard=shard)
     if "val" in data_cfg:
         val = Loader(dataset("val"),
                      batch_size=int(config.get("eval_batch_size") or 1),
-                     shuffle=False, num_workers=nw)
+                     shuffle=False, num_workers=nw, shard=shard)
     return train, val
 
 

@@ -18,16 +18,19 @@ Modules take NCHW; parameter and buffer names are torchvision's.
         the module's own buffers updates them once;
       * eval normalises with the running statistics.
 
-Cross-process synchronised statistics (the JAX package's ``bn_axis_name``)
-are not ported: one process trains.
+In a data-parallel run (:func:`sync_batchnorm`) the train-mode statistics
+are those of the whole batch across the ranks, as the JAX package's
+``bn_axis_name`` makes them: flax's ``axis_name`` path.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.steps import all_reduce_mean
 from .layers import avg_std_pool
 
 
@@ -55,6 +58,8 @@ class BatchNorm(nn.BatchNorm2d):
     statistics.  Weight, bias and statistics stay float32 under a bf16
     compute dtype (``models/vqa_network.py:f32_names``)."""
 
+    process_group = None  # set by sync_batchnorm in a data-parallel run
+
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS)
 
@@ -62,19 +67,52 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.process_group is not None:
+            return self._synced(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
         n = x.numel() // x.shape[1]
-        with torch.no_grad():  # the scratch vectors are saved for backward
-            biased = var * ((n - 1) / n if n > 1 else 0.0)
-            self.running_mean.mul_(BN_MOMENTUM).add_(mean,
-                                                     alpha=1 - BN_MOMENTUM)
-            self.running_var.mul_(BN_MOMENTUM).add_(biased,
-                                                    alpha=1 - BN_MOMENTUM)
-            self.num_batches_tracked.add_(1)
+        # the scratch vectors are saved for backward
+        self._fold(mean, var * ((n - 1) / n if n > 1 else 0.0))
         return y
+
+    def _synced(self, x):
+        """flax's ``axis_name`` path: the per-channel mean and E[x^2] in
+        at least float32, averaged over the ranks by one differentiable
+        all-reduce (every rank's batch is as large), the variance E[x^2] -
+        mean^2 (clipped at 0), the normalisation in that precision."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        dims = (0, 2, 3)
+        stats = all_reduce_mean(torch.cat([xf.mean(dims),
+                                           (xf * xf).mean(dims)]),
+                                self.process_group)
+        mean, mean2 = stats[:c], stats[c:]
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = ((xf - mean[:, None, None]) * scale[:, None, None]
+             + self.bias.to(xf.dtype)[:, None, None])
+        self._fold(mean, var)
+        return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _fold(self, mean, biased_var):
+        self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        self.running_var.mul_(BN_MOMENTUM).add_(biased_var,
+                                                alpha=1 - BN_MOMENTUM)
+        self.num_batches_tracked.add_(1)
+
+
+def sync_batchnorm(model: nn.Module, group=None) -> None:
+    """Average the train-mode statistics of every :class:`BatchNorm` of
+    ``model`` over the ranks of ``group`` (the default group when None).
+    At one rank nothing changes."""
+    if dist.get_world_size(group) > 1:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.process_group = group or dist.group.WORLD
 
 
 class BottleneckBlock(nn.Module):

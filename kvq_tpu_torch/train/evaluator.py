@@ -1,5 +1,5 @@
 """The eval half of the JAX ``Trainer`` (kvq_tpu/train/trainer.py:465-547,
-603-627, 674-719), single process.
+571-627, 674-719).
 
 ``Evaluator(config)`` builds the eval network (seeded random weights,
 cast to the compute dtype) and merges the weights of ``test_load_path``,
@@ -12,6 +12,14 @@ against the labels; ``inference_test(batches, output_path)`` writes
 bf16 pre-cast (on a worker thread) and host-to-device copy are in flight
 while batch N is scored, and batch N's scores are read back only after
 batch N+1 has been dispatched.
+
+In a data-parallel run (a process group of more than one rank) each rank
+scores its own Loader shard; ``evaluate`` and ``inference_test`` then
+gather every rank's rows by their ``sample_index`` (the Loader stamps it)
+and drop the shard wrap's duplicates (``parallel/steps.py:gather_rows``),
+so every rank gets the metrics of the whole split, and rank 0 alone writes
+``output.txt``, in dataset-index order: the one-process order of a val
+Loader, which does not shuffle.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.checkpoint import load_weights
 from ..core.config import key_list, normalize_config
@@ -34,6 +43,8 @@ from ..data.pipeline import (
     view_dtype,
 )
 from ..models.vqa_network import build_model
+from ..parallel.mesh import rank, world
+from ..parallel.steps import gather_rows
 
 
 class Evaluator:
@@ -83,20 +94,43 @@ class Evaluator:
         for b, n0, o in pending:
             yield b, n0, self._collect(n0, o)
 
-    def evaluate(self, batches: Iterable[dict]) -> VQAMetrics:
-        preds, labels = [], []
+    def _columns(self, batches: Iterable[dict], field: str) -> tuple:
+        """(dataset indices, scores, ``field``'s values) of every scored
+        video; the indices (the batches' ``sample_index``, which the Loader
+        stamps) only in a data-parallel run, which gathers by them."""
+        index, scores, values = [], [], []
+        multi = world() > 1
         for batch, n, p in self.scored_batches(batches):
-            preds.extend(p)
-            lab = np.asarray(batch["label"], np.float64).reshape(-1)
-            labels.extend(lab[:n].tolist())
+            scores.extend(p)
+            v = batch[field]
+            values.extend(list(v)[:n] if field == "video_name" else
+                          np.asarray(v, np.float64).reshape(-1)[:n].tolist())
+            if multi:
+                if "sample_index" not in batch:
+                    raise ValueError(
+                        "a data-parallel eval needs batches with "
+                        "'sample_index' (the Loader stamps it)")
+                index.extend(np.asarray(batch["sample_index"])[:n].tolist())
+        return index, scores, values
+
+    def evaluate(self, batches: Iterable[dict]) -> VQAMetrics:
+        index, preds, labels = self._columns(batches, "label")
+        if world() > 1:
+            _, preds, labels = gather_rows(index, preds, labels)
         return vqa_metrics(labels, preds)
 
     def inference_test(self, batches: Iterable[dict],
                        output_path: str = "output.txt") -> list:
-        results = []
-        for batch, n, p in self.scored_batches(batches):
-            results.extend(zip(list(batch["video_name"])[:n], p))
-        with open(output_path, "w") as f:
-            for name, score in results:
-                f.write(f"{name},{score}\n")
+        index, scores, names = self._columns(batches, "video_name")
+        if world() > 1:
+            named: list[dict] = [None] * world()
+            dist.all_gather_object(named, dict(zip(index, names)))
+            name_of = {i: v for d in named for i, v in d.items()}
+            index, scores = gather_rows(index, scores)
+            names = [name_of[i] for i in index]
+        results = list(zip(names, scores))
+        if rank() == 0:
+            with open(output_path, "w") as f:
+                for name, score in results:
+                    f.write(f"{name},{score}\n")
         return results

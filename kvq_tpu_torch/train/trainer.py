@@ -1,4 +1,5 @@
-"""The one-device Trainer (counterpart of kvq_tpu/train/trainer.py:115-670).
+"""The Trainer (counterpart of kvq_tpu/train/trainer.py:115-670), on one
+device or data-parallel over ``torch.distributed``.
 
 ``Trainer(config, device="cuda", seed=0)`` builds the network of any
 ported model key with float32 master parameters
@@ -28,7 +29,22 @@ and the head's dropout, drawn in that order on every route, with or
 without remat, so one seed gives the kernel path and the plain path the
 same draws.  ``save`` / ``load`` keep the full state (core/checkpoint.py),
 generator included; ``load`` also resumes the JAX trainer's
-``_last_state.msgpack``.
+``_last_state.msgpack``.  ``train_eval`` logs each epoch's loss terms and
+best metrics through ``core/logging.py:MetricLogger``: printed, and
+written to ``{name}_metrics.jsonl`` under ``log_dir`` when one is given.
+
+Data-parallel (kvq_tpu/parallel/steps.py:79-118 ``make_ddp_train_step``):
+when a process group is up and the config says ``ddp``, each rank trains
+on its own batch (at least 2 samples: the correlation losses are
+degenerate on one) and the step is the JAX DDP step's: the trainable
+BatchNorms' statistics are synced across the ranks, rank 0's state is
+broadcast once, the gradients and the loss terms are averaged between
+``backward`` and the AdamW step (``parallel/steps.py``), ``evaluate``
+gathers every rank's rows, and rank 0 alone writes files.  Rank r's
+generator is seeded with ``seed + 1 + r * 2**32``: rank 0's is the
+one-process trainer's, and the others draw other noise, as JAX's
+``fold_in(rng, axis_index)`` does.  A group of more than one rank without
+``ddp`` raises: the ranks would train apart.
 """
 
 from __future__ import annotations
@@ -38,6 +54,7 @@ from typing import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from ..core.checkpoint import (
@@ -50,6 +67,7 @@ from ..core.checkpoint import (
 from ..core.config import model_keys, normalize_config
 from ..core.device import resolve_device
 from ..core.from_jax import adamw_state_from_jax, map_jax_tree
+from ..core.logging import MetricLogger
 from ..core.metrics import VQAMetrics
 from ..data.pipeline import (
     prefetch_to_device,
@@ -66,6 +84,9 @@ from ..models.vqa_network import (
     compute_tensors,
     f32_names,
 )
+from ..nn.resnet import sync_batchnorm
+from ..parallel.mesh import rank, world
+from ..parallel.steps import broadcast_state, reduce_aux, reduce_gradients
 from .evaluator import Evaluator
 from .losses import total_loss
 from .optim import KSVQE_FROZEN_PATTERNS, build_optimizer, ema_update, freeze
@@ -76,7 +97,7 @@ PIPELINE_DEPTH = 2  # train batches prepared and copied ahead of the step
 class Trainer:
     def __init__(self, config: dict, device="cuda", seed: int = 0,
                  steps_per_epoch: int = 1, workdir: str = "./work",
-                 test_set: str = "val"):
+                 test_set: str = "val", log_dir: str | None = None):
         self.config = normalize_config(config)
         cfg = self.config
         self.workdir = workdir
@@ -86,6 +107,12 @@ class Trainer:
         self.is_ksvqe = "KSVQE" in keys
         self.fields = train_fields(keys)
         self.device = resolve_device(device)
+        self.rank, self.world = rank(), world()
+        self.ddp = dist.is_initialized() and bool(cfg.get("ddp"))
+        if self.world > 1 and not self.ddp:
+            raise ValueError(
+                f"{self.world} ranks and no `ddp: true` in the config: the "
+                f"ranks would train unsynchronised replicas")
         self.model = build_train_model(cfg, self.device, seed)
         if cfg.get("load_path"):
             load_weights(self.model, cfg["load_path"])
@@ -117,9 +144,14 @@ class Trainer:
         self.best = (-1.0, -1.0, -1.0, 1999.0)
         self.best_ema = (-1.0, -1.0, -1.0, 1999.0)
         self.last_losses: dict[str, float] = {}  # of train_eval's epoch
-        self.gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            seed + 1 + self.rank * 2 ** 32)
         self._frozen = None
         self._evaluator = None
+        self.logger = MetricLogger(log_dir, str(cfg.get("name", "train")))
+        if self.ddp:
+            sync_batchnorm(self.model)
+            broadcast_state(self.model, self.ema)
 
     # ------------------------------------------------------------------ steps
     def _compute_tensors(self) -> dict:
@@ -140,6 +172,11 @@ class Trainer:
     def _step(self, dev: dict) -> dict:
         """One train step on a device-resident batch; returns the loss
         terms as 0-d tensors (nothing is read back)."""
+        if self.ddp and dev["label"].shape[0] < 2:
+            raise ValueError(
+                f"a data-parallel step needs at least 2 samples a rank, got "
+                f"{dev['label'].shape[0]}: the correlation losses are "
+                f"degenerate on one")
         self.model.train()
         out = functional_call(self.model, self._compute_tensors(), (dev,),
                               {"gen": self.gen})
@@ -148,6 +185,9 @@ class Trainer:
                                self.rank_w)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.ddp:
+            reduce_gradients(self.params)
+            aux = reduce_aux(aux)
         self.optimizer.step()
         self.schedule.step()
         if self.use_ema:
@@ -207,22 +247,27 @@ class Trainer:
         ``(best, best_ema)``.  The JAX trainer's
         ``train_eval_all_epoches``."""
         self.last_losses = self.train_epoch(train_batches)
+        self.logger.log(self.step, self.last_losses, prefix="train/")
         self.best = self._eval_and_maybe_save(False, self.best, "n",
                                               val_batches)
         if self.use_ema:
             self.best_ema = self._eval_and_maybe_save(True, self.best_ema,
                                                       "s", val_batches)
+        self.logger.log(self.step, dict(zip(
+            ("best_srcc", "best_plcc", "best_krcc", "best_rmse"), self.best)),
+            prefix="val_n/")
         return self.best, self.best_ema
 
     def _eval_and_maybe_save(self, use_ema: bool, best: tuple, suffix: str,
                              val_batches) -> tuple:
         """The reference's rule: write the weights when SRCC + PLCC beats
         the best so far (and ``save_model``), with the best so far as its
-        validation results; each metric's best is its max (RMSE: min)."""
+        validation results; each metric's best is its max (RMSE: min).
+        Every rank gets the same metrics; rank 0 writes."""
         m = self.evaluate(val_batches, use_ema=use_ema)
         best_s, best_p, best_k, best_r = best
         if m.srcc + m.plcc > best_s + best_p and self.config.get(
-                "save_model", True):
+                "save_model", True) and self.rank == 0:
             name = f"{self.config['name']}_head_{self.test_set}"
             save_checkpoint(
                 os.path.join(self.workdir, f"{name}_{suffix}_finetuned.pth"),
@@ -234,7 +279,14 @@ class Trainer:
     # -------------------------------------------------------------- state
     def save(self, path: str) -> None:
         """Full train state: parameters, optimizer and schedule, EMA, step,
-        best metrics and the generator."""
+        best metrics and the generator.  Data-parallel, every rank calls it
+        (it gathers each rank's generator) and rank 0 writes."""
+        gens = None
+        if self.ddp:
+            gens = [None] * self.world
+            dist.all_gather_object(gens, self.gen.get_state())
+        if self.rank != 0:
+            return
         save_checkpoint(path, {
             "params": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -244,6 +296,7 @@ class Trainer:
             "best": list(self.best),
             "best_ema": list(self.best_ema),
             "generator": self.gen.get_state(),
+            **({"rank_generators": gens} if gens else {}),
         })
 
     def load(self, path: str) -> None:
@@ -262,7 +315,11 @@ class Trainer:
         self.step = int(state["step"])
         self.best = tuple(state["best"])
         self.best_ema = tuple(state["best_ema"])
-        self.gen.set_state(state["generator"])
+        gens = state.get("rank_generators") or []
+        if len(gens) == self.world:
+            self.gen.set_state(gens[self.rank])
+        elif self.rank == 0:  # another world's file: the others keep theirs
+            self.gen.set_state(state["generator"])
         self._frozen = None
 
     def load_jax_state(self, state: dict, path: str = "<state>") -> None:
