@@ -2,8 +2,9 @@
 """Runs the port's main paths — KSVQE eval scoring, Swin-T-3D eval scoring
 (the swin_tiny_grpb model key), KSVQE training and swin_tiny_grpb training,
 then KSVQE scoring and training through the CLIs, then SimpleVQA scoring,
-training and its path from mp4 files, then the data-parallel paths — on
-one NVIDIA GPU.
+training and its path from mp4 files, then the data-parallel paths, then
+the two-branch swin_tiny + conv_tiny model, swin_2d_tiny and the full CLIP
+— on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -32,7 +33,11 @@ one NVIDIA GPU.
    stages 2-3, unshifted and shifted, K6
    (flash_window_attention) at stage 0's in head-major layout and K7
    (flash_attention_nobias) at the nine CDM shapes in head-major layout,
-   against their plain versions and scaled_dot_product_attention;
+   against their plain versions and scaled_dot_product_attention; then
+   K1 and K4 (forward and backward, B=4, DropPath multipliers) at
+   swin_2d_tiny's four stage geometries (B=1, T=8, 224 px: windows of
+   (1, 7, 7), N = 49; stages 0-2 unshifted and shifted, stage 3
+   unshifted), output and every gradient against the plain versions;
 6. builds KSVQE + VQAHead at full width from seeded random weights in bf16,
    scores a few batches of the shipped eval shapes (the 9x9x32 px mosaic of
    96 frames, the 112 px resize view) through the evaluator
@@ -107,7 +112,26 @@ one NVIDIA GPU.
    forward; (d) ``torchrun --standalone --nproc_per_node 1 -m
    kvq_tpu_torch.cli.train --ddp`` on step 11's config over 8 + 4 of those
    mp4s: its exit code, steps/s and first metrics record;
-16. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
+16. scores the two-branch model "swin_tiny,conv_tiny" (DOVER's technical +
+   aesthetic layout, scores summed under reduce_scores) at full width in
+   bf16 with use_pallas, B=1, technical and ``asesthetic`` [sic] views of
+   32 frames at 224 px: K1 launches per forward (12: one per Swin block),
+   videos/s over three runs, the host's dispatch, device busy by family,
+   launch calls, idle share, peak memory, conv_tiny's depthwise convs timed
+   alone (as the port runs them and through cuDNN's channels-last path),
+   the kernel path against the plain path, conv_tiny's f32 score on the
+   card (TF32 off) against the CPU's;
+17. scores swin_2d_tiny + VQAHead (B=1, T=8, 224 px): 12 K1 launches a
+   forward, features and score against the plain path, timings; then one
+   train step through ``Trainer`` (B=4, f32 masters, bf16 compute, remat
+   off) against the plain path's step (loss and every gradient), its K4
+   and K5 launches by route (12 + 12 K4 where the gate fuses every block),
+   three more steps and the step's timings;
+18. runs the full CLIP at OpenAI's ViT-B/16 and RN50 shapes from seeded
+   weights on 8 images of 224 px and 8 prompts (the tiny synthetic BPE's
+   ids padded to 77): its f32 logits on the card (TF32 off) against the
+   CPU's within 1e-3 of their largest, and a bf16 forward timed;
+19. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
    records, and as its last line ``{"ok": true, "device": {...}}``.
 
 The videos of steps 10 and 11 are synthetic (the config's
@@ -232,15 +256,16 @@ GRPB_M_WINDOW = (4, 4, 4)
 GRPB_M_STAGES = [(dims, C, h, False) for dims, C, h, _ in SWIN_STAGES]
 
 
-def swin_config(key: str, use_pallas: bool = True) -> dict:
-    """The model block of a Swin-T-3D key (reference FAST-VQA configs:
-    VQAHead on 768 channels, 64 hidden)."""
-    return {"name": key, "model": {
-        "type": key, "compute_dtype": "bfloat16",
-        "args": {key: {
+def keys_config(keys, use_pallas: bool = True) -> dict:
+    """The model block of one or more keys (summed under reduce_scores):
+    bf16, remat off, each a VQAHead on 768 channels, 64 hidden (the
+    reference FAST-VQA / DOVER heads)."""
+    return {"name": ",".join(keys), "model": {
+        "type": ",".join(keys), "compute_dtype": "bfloat16",
+        "args": {k: {
             "backbone": {"checkpoint": False, "use_pallas": use_pallas},
             "head": {"in_channels": 768, "hidden_channels": 64},
-        }},
+        } for k in keys},
     }}
 
 
@@ -268,7 +293,7 @@ SWIN_TRAIN_STEPS = 3  # timed steps after the compared ones
 def swin_train_config(use_pallas: bool = True, remat: bool = True) -> dict:
     """swin_tiny_grpb's training config: remat on unless ``remat`` is
     false (JAX's default for a backbone config that says nothing)."""
-    cfg = swin_config("swin_tiny_grpb", use_pallas)
+    cfg = keys_config(["swin_tiny_grpb"], use_pallas)
     cfg["model"]["args"]["swin_tiny_grpb"]["backbone"]["checkpoint"] = remat
     return {**cfg, **SCHEDULE}
 
@@ -397,6 +422,43 @@ def attention_cases(gen):
     return cases
 
 
+def k1_case(k1, model, stage, shifted, gen, stages, window, batch, reps,
+            card):
+    """K1 at one stage geometry against its plain version, timed beside it
+    and its bound; adds ``reps`` x the times to the record ``k1``."""
+    import torch
+
+    from kvq_tpu_torch.ops import window_attention as WA
+
+    args, flops, nbytes = block_case(stage, shifted, gen, stages, batch,
+                                     window)
+    out = WA.fused_swin_block(*args)
+    ref = WA.fused_swin_block_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = max(1.0, ref.float().abs().max().item())
+    ok = math.isfinite(err) and err <= K1_TOL * scale
+    ms = cuda_ms(lambda: WA.fused_swin_block(*args))
+    pms = cuda_ms(lambda: WA.fused_swin_block_plain(*args), 5)
+    b, by = bound_ms(nbytes, flops)
+    geo = args[4]
+    print(f"K1 {model} stage{stage} shift={geo.shift} "
+          f"BW={batch * geo.n_windows} N={geo.n_tokens} "
+          f"C={args[0].shape[2]}: max|d|={err:.4g} "
+          f"(tol {K1_TOL * scale:.4g}) kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {b:.4f} ms ({by}); {card}",
+          flush=True)
+    if not ok:
+        fail(f"K1 {model} stage {stage} shift {geo.shift}: max|d| {err}")
+    k1["ms"] += reps * ms
+    k1["plain_ms"] += reps * pms
+    k1["bound"][0] += reps * nbytes / PEAK_BYTES * 1e3
+    k1["bound"][1] += reps * flops / PEAK_BF16_FLOPS * 1e3
+    k1["err"] = max(k1["err"], err)
+    k1["rows"].append((model, stage, geo.n_tokens, geo.shift, err, ms, pms,
+                       b, by))
+
+
 def kernel_phase(card: str):
     """K1 and K2 against their plain versions; returns timing records.
     K1 runs at KSVQE's four stage geometries, whose times make up its
@@ -418,35 +480,8 @@ def kernel_phase(card: str):
               for s in range(2)]
     for model, stage, stages, window, reps in cases:
         for shifted in (False, True):
-            args, flops, nbytes = block_case(stage, shifted, gen, stages,
-                                             window=window)
-            out = WA.fused_swin_block(*args)
-            ref = WA.fused_swin_block_plain(*args)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            scale = max(1.0, ref.float().abs().max().item())
-            ok = math.isfinite(err) and err <= K1_TOL * scale
-            ms = cuda_ms(lambda: WA.fused_swin_block(*args))
-            pms = cuda_ms(lambda: WA.fused_swin_block_plain(*args), 5)
-            b, by = bound_ms(nbytes, flops)
-            geo = args[4]
-            print(f"K1 {model} stage{stage} shift={geo.shift} "
-                  f"BW={geo.n_windows} N={geo.n_tokens} "
-                  f"C={args[0].shape[2]}: max|d|={err:.4g} "
-                  f"(tol {K1_TOL * scale:.4g}) kernel {ms:.4f} ms, plain "
-                  f"{pms:.4f} ms, bound {b:.4f} ms ({by}); {card}",
-                  flush=True)
-            if not ok:
-                fail(f"K1 {model} stage {stage} shift {geo.shift}: "
-                     f"max|d| {err}")
-            k1["ms"] += reps * ms
-            k1["plain_ms"] += reps * pms
-            k1["bound"][0] += reps * nbytes / PEAK_BYTES * 1e3
-            k1["bound"][1] += reps * flops / PEAK_BF16_FLOPS * 1e3
-            k1["err"] = max(k1["err"], err)
-            k1["rows"].append((model, stage, geo.n_tokens, geo.shift, err,
-                               ms, pms, b, by))
-            del args
+            k1_case(k1, model, stage, shifted, gen, stages, window, 1, reps,
+                    card)
     k2 = {"ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0, "bound": [0.0, 0.0],
           "err": 0.0, "rows": []}
     for name, q, k, v, h, scale in attention_cases(gen):
@@ -515,75 +550,79 @@ def _add(agg, reps, ms, pms, nbytes, flops, err, lms=None):
         agg["lib_ms"] += reps * lms
 
 
+def k4_case(k4f, k4b, tag, stage, shifted, gen, stages, window, batch, reps,
+            card):
+    """K4 forward and backward at one stage geometry, with DropPath
+    multipliers, against the plain versions (output and every gradient),
+    timed beside them and their bounds; adds ``reps`` x the times to the
+    records ``k4f``/``k4b``."""
+    import torch
+
+    from kvq_tpu_torch.ops import train_attention as TA
+    from kvq_tpu_torch.ops.window_attention import fused_swin_block_plain
+
+    (x, params, rel, frag, geo), flops, _ = block_case(
+        stage, shifted, gen, stages, batch, window)
+    BW, N, C = x.shape
+    h, nW = geo.num_heads, geo.n_windows
+    scale = geo.head_dim ** -0.5
+    dp1, dp2 = _multipliers(batch, nW, gen), _multipliers(batch, nW, gen)
+    dout = torch.randn(x.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    args = (x, params, rel, frag, geo, scale, dp1, dp2)
+    out = TA.train_swin_block_fwd(*args)
+    ref = fused_swin_block_plain(*args)
+    dx, g, drel, dfrag = TA.train_swin_block_bwd(*args, dout)
+    rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(*args, dout)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = K1_TOL * max(1.0, ref.float().abs().max().item())
+    if not (math.isfinite(err) and err <= tol):
+        fail(f"{tag} forward stage {stage} shift {geo.shift}: max|d| {err}")
+    tag = f"{tag} stage{stage} shift={geo.shift}"
+    gerr = {"dx": _grad_err(f"{tag} dx", dx, rdx),
+            "drel": _grad_err(f"{tag} drel", drel, rdrel)}
+    if frag is not None:
+        gerr["dfrag"] = _grad_err(f"{tag} dfrag", dfrag, rdfrag)
+    for k in g:
+        gerr[k] = _grad_err(f"{tag} {k}", g[k].reshape(rg[k].shape), rg[k])
+    del out, ref, dx, g, drel, dfrag, rdx, rg, rdrel, rdfrag
+    ms_f = cuda_ms(lambda: TA.train_swin_block_fwd(*args), 10)
+    pms_f = cuda_ms(lambda: fused_swin_block_plain(*args), 3)
+    ms_b = cuda_ms(lambda: TA.train_swin_block_bwd(*args, dout), 5)
+    pms_b = cuda_ms(lambda: TA.train_swin_block_bwd_plain(*args, dout), 2)
+    planes = (1 + int(frag is not None)) * h * N * N * 4
+    w = 12 * C * C
+    by_f = 2 * BW * N * C * 2 + w * 2 + planes + 2 * BW * 4
+    by_b = 3 * BW * N * C * 2 + w * 2 + w * 4 + 2 * planes + 2 * BW * 4
+    bf, byf = bound_ms(by_f, flops)
+    bb, byb = bound_ms(by_b, 3 * flops)
+    _add(k4f, reps, ms_f, pms_f, by_f, flops, err)
+    _add(k4b, reps, ms_b, pms_b, by_b, 3 * flops, max(gerr.values()))
+    k4f["rows"].append((stage, geo.shift, BW, C, err, ms_f, pms_f, bf, byf))
+    k4b["rows"].append((stage, geo.shift, BW, C, gerr, ms_b, pms_b, bb, byb))
+    print(f"{tag} BW={BW} N={N} C={C}: forward max|d|={err:.4g} (tol "
+          f"{tol:.4g}) kernel {ms_f:.4f} ms, plain {pms_f:.4f} ms, "
+          f"bound {bf:.4f} ms ({byf}); backward max|d| by grad "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in gerr.items()})}"
+          f" kernel {ms_b:.4f} ms, plain {pms_b:.4f} ms, bound "
+          f"{bb:.4f} ms ({byb}); {card}", flush=True)
+    del args, x, params, dout
+    torch.cuda.empty_cache()
+
+
 def train_kernel_phase(card: str):
     """K4 at the train geometries of stages 0-2 and K5 at stage 3's (B=4,
     T=32), forward and backward, against their plain versions; returns
     timing records of the calls of one train step."""
     import torch
 
-    from kvq_tpu_torch.ops import train_attention as TA
-    from kvq_tpu_torch.ops.window_attention import fused_swin_block_plain
-
     gen = torch.Generator(device="cuda").manual_seed(1)
     k4f, k4b, k5f, k5b = _agg(), _agg(), _agg(), _agg()
     for stage in range(3):
         for shifted in (False, True):
-            (x, params, rel, frag, geo), flops, _ = block_case(
-                stage, shifted, gen, TRAIN_STAGES, TRAIN_B)
-            BW, N, C = x.shape
-            h, nW = geo.num_heads, geo.n_windows
-            scale = geo.head_dim ** -0.5
-            dp1, dp2 = _multipliers(TRAIN_B, nW, gen), _multipliers(
-                TRAIN_B, nW, gen)
-            dout = torch.randn(x.shape, generator=gen, device="cuda").to(
-                torch.bfloat16)
-            args = (x, params, rel, frag, geo, scale, dp1, dp2)
-            out = TA.train_swin_block_fwd(*args)
-            ref = fused_swin_block_plain(*args)
-            dx, g, drel, dfrag = TA.train_swin_block_bwd(*args, dout)
-            rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(*args,
-                                                                   dout)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = K1_TOL * max(1.0, ref.float().abs().max().item())
-            if not (math.isfinite(err) and err <= tol):
-                fail(f"K4 forward stage {stage} shift {geo.shift}: max|d| "
-                     f"{err}")
-            tag = f"K4 stage{stage} shift={geo.shift}"
-            gerr = {"dx": _grad_err(f"{tag} dx", dx, rdx),
-                    "drel": _grad_err(f"{tag} drel", drel, rdrel)}
-            if frag is not None:
-                gerr["dfrag"] = _grad_err(f"{tag} dfrag", dfrag, rdfrag)
-            for k in g:
-                gerr[k] = _grad_err(f"{tag} {k}", g[k].reshape(rg[k].shape),
-                                    rg[k])
-            del out, ref, dx, g, drel, dfrag, rdx, rg, rdrel, rdfrag
-            ms_f = cuda_ms(lambda: TA.train_swin_block_fwd(*args), 10)
-            pms_f = cuda_ms(lambda: fused_swin_block_plain(*args), 3)
-            ms_b = cuda_ms(lambda: TA.train_swin_block_bwd(*args, dout), 5)
-            pms_b = cuda_ms(
-                lambda: TA.train_swin_block_bwd_plain(*args, dout), 2)
-            planes = (1 + int(frag is not None)) * h * N * N * 4
-            w = 12 * C * C
-            by_f = 2 * BW * N * C * 2 + w * 2 + planes + 2 * BW * 4
-            by_b = 3 * BW * N * C * 2 + w * 2 + w * 4 + 2 * planes + 2 * BW * 4
-            bf, byf = bound_ms(by_f, flops)
-            bb, byb = bound_ms(by_b, 3 * flops)
-            reps = TRAIN_REPS[stage]
-            _add(k4f, reps, ms_f, pms_f, by_f, flops, err)
-            _add(k4b, reps, ms_b, pms_b, by_b, 3 * flops, max(gerr.values()))
-            k4f["rows"].append((stage, geo.shift, BW, C, err, ms_f, pms_f, bf,
-                                byf))
-            k4b["rows"].append((stage, geo.shift, BW, C, gerr, ms_b, pms_b,
-                                bb, byb))
-            print(f"{tag} BW={BW} C={C}: forward max|d|={err:.4g} (tol "
-                  f"{tol:.4g}) kernel {ms_f:.4f} ms, plain {pms_f:.4f} ms, "
-                  f"bound {bf:.4f} ms ({byf}); backward max|d| by grad "
-                  f"{json.dumps({k: float(f'{v:.3g}') for k, v in gerr.items()})}"
-                  f" kernel {ms_b:.4f} ms, plain {pms_b:.4f} ms, bound "
-                  f"{bb:.4f} ms ({byb}); {card}", flush=True)
-            del args, x, params, dout
-            torch.cuda.empty_cache()
+            k4_case(k4f, k4b, "K4", stage, shifted, gen, TRAIN_STAGES,
+                    (8, 7, 7), TRAIN_B, TRAIN_REPS[stage], card)
     dims, C, h, use_frag = TRAIN_STAGES[3]
     for shifted in (False, True):
         geo = padded_geometry(dims, C, h, use_frag, shifted, batch=TRAIN_B)
@@ -1352,15 +1391,17 @@ def make_swin_batch(rng, i: int) -> dict:
 
 
 def _score_both(config, model, dev_batch):
-    """The kernel path's score and the plain path's (use_pallas off, the
-    same weights) on one device-resident batch; fails past SCORE_TOL."""
+    """The kernel path's score and the plain path's (every backbone's
+    use_pallas off, the same weights) on one device-resident batch; fails
+    past SCORE_TOL."""
     import torch
 
     from kvq_tpu_torch.models.vqa_network import build_model
 
     key = config["model"]["type"]
     plain_cfg = json.loads(json.dumps(config))
-    plain_cfg["model"]["args"][key]["backbone"]["use_pallas"] = False
+    for hypers in plain_cfg["model"]["args"].values():
+        hypers["backbone"]["use_pallas"] = False
     plain = build_model(plain_cfg, device="cuda",
                         state_dict=model.state_dict())
     with torch.no_grad():
@@ -1388,7 +1429,7 @@ def swin_path(card: str) -> dict:
     from kvq_tpu_torch.models.vqa_network import build_model
     from kvq_tpu_torch.train.evaluator import Evaluator
 
-    config = swin_config("swin_tiny_grpb")
+    config = keys_config(["swin_tiny_grpb"])
     t0 = time.time()
     model = build_model(config, device="cuda", seed=0)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1447,7 +1488,7 @@ def swin_path(card: str) -> dict:
     torch.cuda.empty_cache()
 
     # swin_tiny_grpb_m: one forward, agreement and routing only
-    m_config = swin_config("swin_tiny_grpb_m")
+    m_config = keys_config(["swin_tiny_grpb_m"])
     m_model = build_model(m_config, device="cuda", seed=1)
     reset_counts()
     with torch.no_grad():
@@ -3374,6 +3415,443 @@ def _rank_cli_test(rank: int, root: str) -> dict:
             "launches": kernel_counts()}
 
 
+# --------------------------------------------------------------------------
+# the rest of the model surface: swin_2d_tiny's kernel geometries (K1 and K4
+# at windows of (1, 7, 7), N = 49), the two-branch swin_tiny + conv_tiny
+# model, swin_2d_tiny eval and training, and the full CLIP
+
+# swin_2d_tiny at B=1, T=8, 224 px: (1, 4, 4) patches give 8x56x56 tokens,
+# windows of (1, 7, 7) (N = 49, head_dim 32) divide every stage; at stage 3
+# (7x7 tokens) get_window_size zeroes the shift
+SWIN2D_T, SWIN2D_PX = 8, 224
+SWIN2D_WINDOW = (1, 7, 7)
+SWIN2D_STAGES = [  # (dims after patch embed/merges, C, heads, frag bias)
+    ((8, 56, 56), 96, 3, False),
+    ((8, 28, 28), 192, 6, False),
+    ((8, 14, 14), 384, 12, False),
+    ((8, 7, 7), 768, 24, False),
+]
+# (stage, shifted, calls of that geometry per forward): depths (2, 2, 6, 2)
+SWIN2D_CASES = [(0, False, 1), (0, True, 1), (1, False, 1), (1, True, 1),
+                (2, False, 3), (2, True, 3), (3, False, 2)]
+SWIN2D_TRAIN_B = 4
+# the two-branch model's views (FAST-VQA / DOVER sizes): the technical
+# view's 7x7 fragments of 32 px and the aesthetic view, 32 frames of 224 px
+DOVER_T, DOVER_PX = 32, 224
+DOVER_FORWARDS = 8   # timed forwards of each videos/s run
+CONV_TOL = 1e-3      # conv_tiny's f32 score, card (TF32 off) vs CPU
+CLIP_TOL = 1e-3      # the full CLIP's f32 logits, card (TF32 off) vs CPU,
+#                      x max|CPU logit|
+# the tiny synthetic BPE of tests/test_clip_full.py and eight prompts
+CLIP_MERGES = [("l", "l"), ("h", "e"), ("he", "ll"), ("hell", "o</w>"),
+               ("w", "o"), ("wo", "r"), ("wor", "l"), ("worl", "d</w>")]
+CLIP_TEXTS = ["hello world", "hello", "world", "a hello world video",
+              "blurry world", "sharp hello", "hello hello world",
+              "noisy video of the world"]
+
+
+def swin2d_kernel_phase(card: str):
+    """K1 at swin_2d_tiny's four stage geometries (B=1, T=8, 224 px: N =
+    49), stages 0-2 unshifted and shifted, stage 3 unshifted, and K4
+    forward and backward at the same geometries at B=4, against their
+    plain versions; returns the records of the calls of one forward / one
+    train step."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    t0 = time.time()
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound": [0.0, 0.0], "err": 0.0,
+          "rows": []}
+    for stage, shifted, reps in SWIN2D_CASES:
+        k1_case(k1, "swin_2d_tiny", stage, shifted, gen, SWIN2D_STAGES,
+                SWIN2D_WINDOW, 1, reps, card)
+    k4f, k4b = _agg(), _agg()
+    for stage, shifted, reps in SWIN2D_CASES:
+        k4_case(k4f, k4b, "K4 swin_2d_tiny", stage, shifted, gen,
+                SWIN2D_STAGES, SWIN2D_WINDOW, SWIN2D_TRAIN_B, reps, card)
+    print(f"swin_2d_tiny kernel phase (N=49): K1 {k1['ms']:.4f} ms a forward "
+          f"(plain {k1['plain_ms']:.4f}, bound {max(k1['bound']):.4f}); K4 "
+          f"{k4f['ms']:.4f} + {k4b['ms']:.4f} ms a step (plain "
+          f"{k4f['plain_ms']:.4f} + {k4b['plain_ms']:.4f}, bounds "
+          f"{max(k4f['bound']):.4f} + {max(k4b['bound']):.4f}); "
+          f"{time.time() - t0:.1f} s; {card}", flush=True)
+    return k1, k4f, k4b
+
+
+def _dover_family(name: str) -> str:
+    if "depthwise" in name.lower():
+        return "depthwise conv"
+    return _family(name)
+
+
+def _videos_per_s(model, host_batch, n: int) -> float:
+    """``n`` forwards, each from a pinned host batch (copy and forward),
+    over the wall clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(n):
+            model({k: v.cuda(non_blocking=True) for k, v in
+                   host_batch.items()}, reduce_scores=True)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def _dwconv_ms(backbone, dev_shape, card: str) -> dict:
+    """The depthwise (k, 7, 7) convs of one ConvNeXt forward alone, at
+    their shapes (bf16, channels-last), timed with CUDA events, beside
+    their bound: as the port runs them (``conv_cl``: a contiguous copy,
+    PyTorch's depthwise kernel) and, for the record, as cuDNN runs them on
+    the channels_last_3d view."""
+    import torch
+    import torch.nn.functional as F
+
+    from kvq_tpu_torch.nn.convnext import conv_cl
+
+    B, T, H, W = dev_shape
+    calls, flops, nbytes = [], 0.0, 0.0
+    for i, stage in enumerate(backbone.stages):
+        h, w = H // (4 * 2 ** i), W // (4 * 2 ** i)
+        for blk in stage:
+            C = blk.dwconv.weight.shape[0]
+            x = torch.randn(B, T, h, w, C, device="cuda").bfloat16()
+            calls.append((blk.dwconv, x))
+            k = blk.dwconv.weight[0].numel()
+            flops += 2.0 * x.numel() * k
+            nbytes += 2 * x.numel() * 2 + blk.dwconv.weight.numel() * 2
+
+    def run():
+        with torch.no_grad():
+            for conv, x in calls:
+                conv_cl(conv, x)
+
+    def run_cudnn():
+        with torch.no_grad():
+            for conv, x in calls:
+                F.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight, conv.bias,
+                         conv.stride, conv.padding, conv.dilation,
+                         conv.groups)
+
+    ms = cuda_ms(run, 10)
+    cudnn_ms = cuda_ms(run_cudnn, 3)
+    b, by = bound_ms(nbytes, flops)
+    print(f"conv_tiny's {len(calls)} depthwise convs alone: {ms:.4f} ms a "
+          f"forward as the port runs them (contiguous, PyTorch's depthwise "
+          f"kernel), {cudnn_ms:.4f} ms through cuDNN on the "
+          f"channels_last_3d view; bound {b:.4f} ms ({by}); {card}",
+          flush=True)
+    return {"ms": ms, "cudnn_channels_last_ms": cudnn_ms, "bound_ms": b,
+            "bound_by": by, "calls": len(calls)}
+
+
+def dover_path(card: str) -> dict:
+    """The two-branch model "swin_tiny,conv_tiny" (DOVER's technical +
+    aesthetic layout) at full width, bf16, use_pallas, scores summed under
+    reduce_scores: B=1, technical and aesthetic views of 32 frames at 224
+    px.  Videos/s and its spread, the host's dispatch, the device's busy
+    time by family (the depthwise conv on its own line), launch calls,
+    idle share, peak memory, K1 launches per forward; the kernel path
+    against the plain path; conv_tiny alone in f32 (TF32 off) against the
+    CPU."""
+    import torch
+
+    from kvq_tpu_torch.models.vqa_network import build_model
+
+    t_phase = time.time()
+    config = keys_config(["swin_tiny", "conv_tiny"])
+    model = build_model(config, device="cuda", seed=3)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(14)
+    shape = (1, DOVER_T, DOVER_PX, DOVER_PX, 3)
+    batch = {"technical": rng.standard_normal(shape, dtype=np.float32),
+             "asesthetic": rng.standard_normal(shape, dtype=np.float32)}
+    # host_tensors takes the Loader's keys, which hold no "asesthetic" (in
+    # kvq_tpu as in the port): the model is fed at its own level
+    host = {k: torch.from_numpy(v).to(torch.bfloat16).pin_memory()
+            for k, v in batch.items()}
+    dev = {k: v.cuda() for k, v in host.items()}
+    with torch.no_grad():
+        model(dev, reduce_scores=True)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        scores = model(dev)
+        score = float(sum(scores).float().reshape(()))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"two-branch swin_tiny + conv_tiny: {n_params} parameters, bf16, "
+          f"seeded random weights; branch scores "
+          f"{[float(s.float().reshape(())) for s in scores]}, sum {score:.6f};"
+          f" launches of one forward {launches}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; {card}", flush=True)
+    if not math.isfinite(score):
+        fail("two-branch score not finite")
+    if launches["fused_swin_block"] + launches[
+            "flash_window_attention_packed"] != 12 or any(
+            v for k, v in launches.items() if k not in (
+                "fused_swin_block", "flash_window_attention_packed")):
+        fail(f"two-branch: expected one K1 or K3 launch per Swin block, got "
+             f"{launches}")
+    if not launches["fused_swin_block"]:
+        fail("two-branch: the swin_tiny branch launched no K1")
+    vps = [_videos_per_s(model, host, DOVER_FORWARDS) for _ in range(3)]
+    print(f"two-branch: videos/s over {DOVER_FORWARDS} forwards (host batch "
+          f"copied each time), 3 runs: {[round(v, 3) for v in vps]}; {card}",
+          flush=True)
+    sk, sp = _score_both(config, model, dev)
+    prof = forward_timings(model, dev, 1e3 / min(vps), card, _dover_family)
+    dw = _dwconv_ms(model.conv_tiny_backbone,
+                    (1, DOVER_T // 2, DOVER_PX, DOVER_PX), card)
+
+    # conv_tiny alone in f32, the card with TF32 off against the CPU
+    conv_cfg = keys_config(["conv_tiny"])
+    conv_cfg["model"]["compute_dtype"] = "float32"
+    sd = {k: v for k, v in model.state_dict().items()
+          if k.startswith("conv_tiny_")}
+    x32 = {"asesthetic": torch.from_numpy(batch["asesthetic"])}
+    t0 = time.time()
+    with torch.no_grad():
+        cpu = float(build_model(conv_cfg, device="cpu", state_dict=sd)(
+            x32, reduce_scores=True).reshape(()))
+    cpu_s = time.time() - t0
+    gpu32 = build_model(conv_cfg, device="cuda", state_dict=sd)
+    with tf32(False), torch.no_grad():
+        gpu = float(gpu32({k: v.cuda() for k, v in x32.items()},
+                          reduce_scores=True).reshape(()))
+    d, tol = abs(gpu - cpu), CONV_TOL * max(1.0, abs(cpu))
+    print(f"conv_tiny f32 score on the card (TF32 off) {gpu:.7f} vs the CPU "
+          f"{cpu:.7f} ({cpu_s:.1f} s): |d| {d:.3g} (tol {tol:.3g})",
+          flush=True)
+    if not d <= tol:
+        fail("conv_tiny's f32 score on the card disagrees with the CPU's")
+    del gpu32, model, dev
+    torch.cuda.empty_cache()
+    phase_s = time.time() - t_phase
+    print(f"two-branch phase: {phase_s:.1f} s", flush=True)
+    prof.pop("top_host_ops", None)
+    prof.update(videos_per_s=vps, launches=launches, peak_memory_bytes=peak,
+                n_params=n_params, score=score, score_kernel=sk,
+                score_plain=sp, dwconv=dw, conv_f32_card=gpu,
+                conv_f32_cpu=cpu, conv_abs_diff=d, phase_s=phase_s)
+    return prof
+
+
+def _features_both(config, model, dev_batch, key, what):
+    """The backbone features of the kernel path against the plain path's,
+    within SCORE_TOL of the plain features' largest magnitude."""
+    import torch
+
+    from kvq_tpu_torch.models.vqa_network import build_model
+
+    plain_cfg = json.loads(json.dumps(config))
+    plain_cfg["model"]["args"][key]["backbone"]["use_pallas"] = False
+    plain = build_model(plain_cfg, device="cuda",
+                        state_dict=model.state_dict())
+    with torch.no_grad():
+        fk = getattr(model, f"{key}_backbone")(dev_batch).float()
+        fp = getattr(plain, f"{key}_backbone")(dev_batch).float()
+    d = (fk - fp).abs().max().item()
+    tol = SCORE_TOL * max(1.0, fp.abs().max().item())
+    print(f"{what}: features {tuple(fk.shape)} kernel path vs plain path "
+          f"max|d| {d:.4g} (tol {tol:.4g})", flush=True)
+    if not (math.isfinite(d) and d <= tol):
+        fail(f"{what}: kernel-path features disagree with the plain path")
+    del plain
+    torch.cuda.empty_cache()
+    return d
+
+
+def swin2d_path(card: str) -> dict:
+    """swin_2d_tiny + VQAHead at full width, bf16, use_pallas: eval at B=1,
+    T=8, 224 px (K1 launches per forward, features and score against the
+    plain path, timings); then one train step at B=4 through Trainer (f32
+    masters, bf16 compute, functional_call; remat off) against the plain
+    path's step, its K4 and K5 launches by route, and its timings."""
+    import torch
+
+    from kvq_tpu_torch.data.pipeline import host_tensors
+    from kvq_tpu_torch.models.vqa_network import build_model
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    key = "swin_2d_tiny"
+    config = keys_config([key])
+    model = build_model(config, device="cuda", seed=4)
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((1, SWIN2D_T, SWIN2D_PX, SWIN2D_PX, 3),
+                            dtype=np.float32)
+    host = host_tensors({"technical": x}, torch.bfloat16, pin=True)
+    dev = {k: v.cuda() for k, v in host.items()}
+    with torch.no_grad():
+        model(dev, reduce_scores=True)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        score = float(model(dev, reduce_scores=True).float().reshape(()))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"swin_2d_tiny eval: score {score:.6f}; launches of one forward "
+          f"{launches}; peak memory {peak / 2 ** 30:.3f} GiB; {card}",
+          flush=True)
+    if not math.isfinite(score):
+        fail("swin_2d_tiny score not finite")
+    if launches != dict(NO_LAUNCHES, fused_swin_block=12):
+        fail(f"swin_2d_tiny: expected 12 K1 launches per forward and no "
+             f"other kernel, got {launches}")
+    vps = [_videos_per_s(model, host, DOVER_FORWARDS) for _ in range(3)]
+    print(f"swin_2d_tiny eval: videos/s over {DOVER_FORWARDS} forwards, 3 "
+          f"runs: {[round(v, 3) for v in vps]}; {card}", flush=True)
+    feat_d = _features_both(config, model, dev, key, "swin_2d_tiny eval")
+    sk, sp = _score_both(config, model, dev)
+    prof = forward_timings(model, dev, 1e3 / min(vps), card)
+    prof.pop("top_host_ops", None)
+    prof.update(videos_per_s=vps, launches=launches, peak_memory_bytes=peak,
+                feature_max_abs_diff=feat_d, score_kernel=sk, score_plain=sp)
+    del model, dev
+    torch.cuda.empty_cache()
+
+    # one train step, kernel path against plain path, the same weights,
+    # batch and generator seed
+    train_cfg = {**config, **SCHEDULE, "batch_size": SWIN2D_TRAIN_B}
+    plain_cfg = json.loads(json.dumps(train_cfg))
+    plain_cfg["model"]["args"][key]["backbone"]["use_pallas"] = False
+    batch = {"technical": rng.standard_normal(
+        (SWIN2D_TRAIN_B, SWIN2D_T, SWIN2D_PX, SWIN2D_PX, 3),
+        dtype=np.float32),
+        "label": rng.standard_normal(SWIN2D_TRAIN_B).astype(np.float32)}
+    tk = Trainer(train_cfg, device="cuda", seed=0, steps_per_epoch=100)
+    tp = Trainer(plain_cfg, device="cuda", seed=0, steps_per_epoch=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    aux_k = tk.train_step(batch)
+    train_launches = kernel_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    aux_p = tp.train_step(batch)
+    agree = step_agreement("swin_2d_tiny train step, kernel path vs plain "
+                           "path", tk, tp, aux_k, aux_p,
+                           f"{key}_backbone.layers.")
+    del tp
+    torch.cuda.empty_cache()
+    fwd = (train_launches["train_swin_block"]
+           + train_launches["window_attention_train"])
+    bwd = (train_launches["train_swin_block_bwd"]
+           + train_launches["window_attention_train_bwd"])
+    others = {k: v for k, v in train_launches.items() if v and k not in (
+        "train_swin_block", "train_swin_block_bwd", "window_attention_train",
+        "window_attention_train_bwd")}
+    print(f"swin_2d_tiny train step (B={SWIN2D_TRAIN_B}, T={SWIN2D_T}, "
+          f"{SWIN2D_PX} px, remat off): launches by route: K4 "
+          f"{train_launches['train_swin_block']} + "
+          f"{train_launches['train_swin_block_bwd']}, K5 "
+          f"{train_launches['window_attention_train']} + "
+          f"{train_launches['window_attention_train_bwd']}; peak memory "
+          f"{train_peak / 2 ** 30:.3f} GiB; {card}", flush=True)
+    if fwd != 12 or bwd != 12 or others:
+        fail(f"swin_2d_tiny train: expected one K4 or K5 forward and "
+             f"backward per block, got {train_launches}")
+    steps = []  # end to end: host pre-cast, copy, step, readback
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tk.train_step(batch)
+        steps.append(time.perf_counter() - t0)
+    print(f"swin_2d_tiny train: 3 more steps through train_step, "
+          f"{[round(x * 1e3, 2) for x in steps]} ms = "
+          f"{[round(1 / x, 3) for x in steps]} steps/s; {card}", flush=True)
+    tprof = step_timings(tk, batch, min(steps) * 1e3, card)
+    tprof.pop("top_host_ops", None)
+    tprof.update(launches=train_launches, peak_memory_bytes=train_peak,
+                 agreement=agree, steps_per_s=[1 / x for x in steps])
+    del tk
+    torch.cuda.empty_cache()
+    phase_s = time.time() - t_phase
+    print(f"swin_2d_tiny phase: {phase_s:.1f} s", flush=True)
+    return {"eval": prof, "train": tprof, "phase_s": phase_s}
+
+
+def clip_configs():
+    """OpenAI's published ViT-B/16 and RN50 CLIP shapes."""
+    from kvq_tpu_torch.nn.clip_model import CLIPConfig
+
+    text = dict(context_length=77, vocab_size=49408, transformer_width=512,
+                transformer_heads=8, transformer_layers=12)
+    return {
+        "ViT-B/16": CLIPConfig(embed_dim=512, vision_width=768,
+                               vision_layers=12, vision_patch_size=16,
+                               image_resolution=224, **text),
+        "RN50": CLIPConfig(embed_dim=1024, vision_width=64,
+                           vision_layers=(3, 4, 6, 3),
+                           vision_patch_size=None, image_resolution=224,
+                           **text),
+    }
+
+
+def clip_full_path(card: str) -> dict:
+    """The full CLIP at OpenAI's ViT-B/16 and RN50 shapes from seeded
+    weights: 8 images of 224 px against 8 prompts (the tiny tokenizer's
+    ids, padded to 77); the f32 logits on the card (TF32 off) against the
+    CPU's, and a bf16 forward timed."""
+    import copy
+
+    import torch
+
+    from kvq_tpu_torch.data.tokenizer import SimpleTokenizer, tokenize
+    from kvq_tpu_torch.models.vqa_network import cast_model, init_weights
+    from kvq_tpu_torch.nn.clip_model import CLIP
+
+    t_phase = time.time()
+    tok = SimpleTokenizer(merges=CLIP_MERGES)
+    text = torch.from_numpy(tokenize(CLIP_TEXTS, tok, 77)).long()
+    rng = np.random.default_rng(16)
+    images = torch.from_numpy(rng.standard_normal((8, 224, 224, 3),
+                                                  dtype=np.float32))
+    out = {}
+    for name, cfg in clip_configs().items():
+        with torch.device("cuda"):
+            net = CLIP(cfg)
+        init_weights(net, seed=5)
+        net.eval()
+        cpu = CLIP(cfg).eval()
+        cpu.load_state_dict(net.state_dict())
+        t0 = time.time()
+        with torch.no_grad():
+            want = cpu(images, text)[0]
+        cpu_s = time.time() - t0
+        with tf32(False), torch.no_grad():
+            got = net(images.cuda(), text.cuda())[0].cpu()
+        d = (got - want).abs().max().item()
+        tol = CLIP_TOL * want.abs().max().item()
+        net16 = cast_model(copy.deepcopy(net), torch.bfloat16)
+        img16, txt = images.cuda().bfloat16(), text.cuda()
+        with torch.no_grad():
+            ms16 = cuda_ms(lambda: net16(img16, txt), 10)
+            g16 = net16(img16, txt)[0].float().cpu()
+        n_params = sum(p.numel() for p in net.parameters())
+        print(f"CLIP {name} ({n_params} parameters): f32 logits (8x8) on the "
+              f"card (TF32 off) vs the CPU ({cpu_s:.1f} s): max|d| {d:.3g} "
+              f"(tol {tol:.3g}); bf16 forward of 8 images and 8 prompts "
+              f"{ms16:.3f} ms; the bf16 logits' max|d| to the f32 CPU's "
+              f"{(g16 - want).abs().max().item():.3g} (reported); {card}",
+              flush=True)
+        if not (torch.isfinite(got).all() and d <= tol):
+            fail(f"CLIP {name}: the card's f32 logits disagree with the "
+                 f"CPU's")
+        out[name] = {"max_abs_diff": d, "tol": tol, "bf16_ms": ms16,
+                     "cpu_s": cpu_s, "n_params": n_params}
+        del net, net16, cpu
+        torch.cuda.empty_cache()
+    phase_s = time.time() - t_phase
+    print(f"full-CLIP phase: {phase_s:.1f} s", flush=True)
+    out["phase_s"] = phase_s
+    return out
+
+
 def first_line(cmd) -> str:
     try:
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
@@ -3461,6 +3939,7 @@ def main() -> int:
         agg["err"] = max(agg["err"], other["err"])
     gemm = gemm_phase(card)
     k3, k6, k7 = eval_attention_phase(card)
+    k1_49, k4f_49, k4b_49 = swin2d_kernel_phase(card)
     run = main_path(card)
     ts2 = tuning_stage_2_path(card)
     swin = swin_path(card)
@@ -3477,6 +3956,9 @@ def main() -> int:
     ddp_cli = cli_ddp_path(card, files)
     ddp_torchrun = torchrun_path(card, files)
     shutil.rmtree(files["root"])
+    dover = dover_path(card)
+    swin2d = swin2d_path(card)
+    clip_full = clip_full_path(card)
 
     def record(name, source, replaces, agg, launches, lib,
                per="the calls of one forward"):
@@ -3493,21 +3975,24 @@ def main() -> int:
     step = "the calls of one train step (B=4, T=32)"
     tl = train["launches"]
     stl = swin_train["launches"]
+    s2l = swin2d["train"]["launches"]
 
     def k5_record(name, replaces, agg, counter, calls):
         """K5 runs in both train cells: its times and bound are those of
         the swin_tiny_grpb train step's calls at the four padded stage
         geometries; its launches are both cells' main-path runs."""
         by_cell = {"KSVQE train": tl[counter],
-                   "swin_tiny_grpb train": stl[counter]}
+                   "swin_tiny_grpb train": stl[counter],
+                   "swin_2d_tiny train": s2l[counter]}
         rec = record(
             name, "kvq_tpu_torch/ops/csrc/train_attention.cu", replaces,
             agg, sum(by_cell.values()), agg["lib_ms"],
             f"ms and bound: {calls} of one swin_tiny_grpb train step (B=4, "
             f"16x72x72 tokens padded per stage; remat repeats the forward "
             f"calls in the backward); launches: {TRAIN_STEPS} KSVQE train "
-            f"steps (2 + 2 a step, stage 3) and {SWIN_TRAIN_STEPS} "
-            f"swin_tiny_grpb train steps at remat on (24 + 12 a step)")
+            f"steps (2 + 2 a step, stage 3), {SWIN_TRAIN_STEPS} "
+            f"swin_tiny_grpb train steps at remat on (24 + 12 a step) and "
+            f"one swin_2d_tiny train step (where the gate declines K4)")
         rec["launches_by_cell"] = by_cell
         return rec
 
@@ -3553,6 +4038,36 @@ def main() -> int:
     for rec in kernels:  # data-parallel runs: (a)'s steps, (c)'s two ranks
         rec["launches_data_parallel"] = (ddp_nccl["launches"][rec["name"]]
                                          + ddp_cli["launches"][rec["name"]])
+
+    def at_n49(agg, per):
+        """A kernel's times at swin_2d_tiny's geometries (N = 49)."""
+        tb, tf = agg["bound"]
+        return {"ms": agg["ms"], "plain_ms": agg["plain_ms"],
+                "bound_ms": max(tb, tf),
+                "bound_by": "bytes" if tb >= tf else "operations",
+                "max_abs_err": agg["err"], "per": per}
+
+    n49 = {"fused_swin_block": at_n49(
+        k1_49, "the calls of one swin_2d_tiny forward (B=1, T=8, 224 px)"),
+        "train_swin_block": at_n49(
+        k4f_49, "the calls of one swin_2d_tiny train step (B=4, T=8, "
+                "224 px)"),
+        "train_swin_block_bwd": at_n49(
+        k4b_49, "the calls of one swin_2d_tiny train step (B=4, T=8, "
+                "224 px)")}
+    paths = {"fused_swin_block": {
+        "KSVQE eval": run["launches"]["fused_swin_block"],
+        "swin_tiny,conv_tiny eval": dover["launches"]["fused_swin_block"],
+        "swin_2d_tiny eval": swin2d["eval"]["launches"]["fused_swin_block"]},
+        "train_swin_block": {"KSVQE train": tl["train_swin_block"],
+                             "swin_2d_tiny train": s2l["train_swin_block"]},
+        "train_swin_block_bwd": {
+            "KSVQE train": tl["train_swin_block_bwd"],
+            "swin_2d_tiny train": s2l["train_swin_block_bwd"]}}
+    for rec in kernels:
+        if rec["name"] in n49:
+            rec["at_n49"] = n49[rec["name"]]
+            rec["launches_by_path"] = paths[rec["name"]]
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "k1_rows": k1["rows"], "k2_rows": k2["rows"],
                    "k4_fwd_rows": k4f["rows"], "k4_bwd_rows": k4b["rows"],
@@ -3572,7 +4087,11 @@ def main() -> int:
                    "simplevqa_files": svqa_files,
                    "ddp_nccl": ddp_nccl, "ddp_simplevqa": ddp_svqa,
                    "ddp_cli_test": ddp_cli, "ddp_torchrun": ddp_torchrun,
-                   "kernels": kernels}, f,
+                   "k1_n49_rows": k1_49["rows"],
+                   "k4_fwd_n49_rows": k4f_49["rows"],
+                   "k4_bwd_n49_rows": k4b_49["rows"],
+                   "two_branch": dover, "swin_2d_tiny": swin2d,
+                   "clip_full": clip_full, "kernels": kernels}, f,
                   indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}), flush=True)

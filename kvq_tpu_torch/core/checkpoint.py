@@ -20,12 +20,16 @@ the reference's parameter names, so a reference ``.pth`` ``state_dict``
 loads as it is.  A JAX file (``kvq_tpu.cli.convert``'s ``{"params",
 "batch_stats"}``, a ``*_finetuned.msgpack`` best-weights file, or a full
 state, of which only ``params`` and ``batch_stats`` are taken) goes through
-core/from_jax.py first, whole or partial.
+core/from_jax.py first, whole or partial.  A timm Swin-T state dict
+(``swin_tiny_patch4_window7_224``, either timm generation) is normalised
+for ``swin_2d_tiny`` first (:func:`timm_swin2d_state_dict`, the
+normalisations of kvq_tpu/core/torch_import.py:254-303).
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Mapping
 
 import torch
@@ -73,6 +77,45 @@ def strip_module_prefix(sd: Mapping) -> dict:
             for k, v in sd.items()}
 
 
+def is_timm_swin2d(sd: Mapping) -> bool:
+    """Whether ``sd`` is a timm 2D Swin's state dict: a 4-D patch kernel."""
+    w = sd.get("patch_embed.proj.weight")
+    return w is not None and len(w.shape) == 4
+
+
+def timm_swin2d_state_dict(sd: Mapping, prefix: str = "") -> dict:
+    """A timm Swin-T state dict as ``swin_2d_tiny``'s, under ``prefix``:
+    the (C, 3, 4, 4) patch kernel gains a time axis; timm >= 0.9's
+    downsample at the entry of stage ``i`` (``layers.{i}.downsample``)
+    moves to the exit of stage ``i - 1``, where the original and Video-Swin
+    layouts keep it; ``head.*``, ``relative_position_index`` and
+    ``attn_mask`` are dropped.  The (13 x 13, heads) relative tables are
+    the (1 x 13 x 13, heads) tables of a (1, 7, 7) window as they are."""
+    entry_style = ("layers.0.downsample.reduction.weight" not in sd
+                   and any(".downsample." in k for k in sd))
+    out = {}
+    for k, v in sd.items():
+        if (k.startswith("head.") or k.endswith("relative_position_index")
+                or k.endswith("attn_mask")):
+            continue
+        m = re.match(r"layers\.(\d+)\.downsample\.(.*)", k)
+        if entry_style and m:
+            k = f"layers.{int(m.group(1)) - 1}.downsample.{m.group(2)}"
+        if k == "patch_embed.proj.weight" and len(v.shape) == 4:
+            v = torch.as_tensor(v)[:, :, None]
+        out[prefix + k] = v
+    return out
+
+
+def _swin2d_prefix(own: Mapping) -> str:
+    """The prefix of the model's one 2D Swin trunk (a patch kernel of
+    depth 1), or ``""``."""
+    pre = [k[:-len("patch_embed.proj.weight")] for k, v in own.items()
+           if k.endswith("patch_embed.proj.weight") and v.dim() == 5
+           and v.shape[2] == 1]
+    return pre[0] if len(pre) == 1 else ""
+
+
 def fork_fragment_tables(sd: Mapping, wanted) -> dict:
     """The reference LSVQ loader's fork: each fragment-bias table in
     ``wanted`` that ``sd`` lacks is taken from its block's relative-bias
@@ -92,14 +135,18 @@ def merge_state_dict(model: torch.nn.Module, sd: Mapping,
                      ) -> dict[str, list[str]]:
     """Copy the entries of ``sd`` that match ``model``'s ``state_dict`` by
     name and shape into the model (cast to each entry's dtype, on its
-    device), after stripping ``module.`` and forking the fragment tables
-    when ``reference`` (a reference checkpoint's fixes).  Returns the report
+    device), after stripping ``module.``, normalising a timm 2D Swin and
+    forking the fragment tables when ``reference`` (a reference
+    checkpoint's fixes).  Returns the report
     ``{"missing", "unexpected", "mismatched"}`` (model names ``sd`` lacks;
     names of ``sd`` the model lacks; names whose shapes differ), which
     ``strict`` turns into a ``ValueError``."""
     own = model.state_dict()
     if reference:
-        sd = fork_fragment_tables(strip_module_prefix(sd), own)
+        sd = strip_module_prefix(sd)
+        if is_timm_swin2d(sd):
+            sd = timm_swin2d_state_dict(sd, _swin2d_prefix(own))
+        sd = fork_fragment_tables(sd, own)
     unexpected, mismatched = [], []
     for name, value in sd.items():
         if name not in own:

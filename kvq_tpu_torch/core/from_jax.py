@@ -8,9 +8,12 @@ the Swin-T-3D keys and ``simpleVQA``, and returns the port's
 names ``kvq_tpu/core/torch_import.py`` reads (``convert_ksvqe_full``;
 ``convert_swin3d`` for a Swin trunk, whose stages the JAX tree keeps under
 ``trunk``; ``convert_simplevqa_full`` for SimpleVQA's ResNet-50 trunk and
-its ``fc1``/``fc2`` head).  :func:`map_slowfast_tree` does the same for a
-``SlowFastR50`` tree (``convert_slowfast_r50``, pytorchvideo's names).
-Each is the converter's inverse:
+its ``fc1``/``fc2`` head; upstream ConvNeXt's names for ``conv_tiny``).
+:func:`map_slowfast_tree` does the same for a ``SlowFastR50`` tree
+(``convert_slowfast_r50``, pytorchvideo's names), :func:`map_convnext_tree`
+for a ConvNeXt, :func:`map_head_tree` for each head of kvq_tpu/nn/heads.py
+and :func:`map_clip_tree` for the full CLIP (``convert_clip_full``,
+OpenAI's names).  Each is the converter's inverse:
 
   - Dense kernel (in, out)        -> Linear weight (out, in)
   - Conv kernel HWIO / DHWIO      -> OIHW / OIDHW
@@ -155,17 +158,7 @@ def _clip(o: _Out, pre: str, p: _Tree) -> None:
     o.put(f"{v}class_embedding", p["class_embedding"])
     o.put(f"{v}positional_embedding", p["positional_embedding"])
     o.ln(f"{v}ln_pre", p["ln_pre"])
-    for i in _indexed(p, "resblocks_"):
-        bp = p[f"resblocks_{i}"]
-        dst = f"{v}transformer.resblocks.{i}"
-        o.put(f"{dst}.attn.in_proj_weight", bp["attn"]["in_proj"]["kernel"],
-              np.transpose)
-        o.put(f"{dst}.attn.in_proj_bias", bp["attn"]["in_proj"]["bias"])
-        o.dense(f"{dst}.attn.out_proj", bp["attn"]["out_proj"])
-        o.ln(f"{dst}.ln_1", bp["ln_1"])
-        o.ln(f"{dst}.ln_2", bp["ln_2"])
-        o.dense(f"{dst}.mlp.c_fc", bp["mlp_c_fc"])
-        o.dense(f"{dst}.mlp.c_proj", bp["mlp_c_proj"])
+    _attn_blocks(o, f"{v}transformer.resblocks.", p)
     for i in _indexed(p, "adapter_layer_"):
         o.adapter(f"{pre}adapter_layer.{i}", p[f"adapter_layer_{i}"])
 
@@ -235,6 +228,108 @@ def _ksvqe(o: _Out, pre: str, p: _Tree, s: _Tree) -> None:
     o.put(f"{pre}a2", p["a2"])
 
 
+def _convnext(o: _Out, pre: str, p: _Tree) -> None:
+    """A JAX ConvNeXt3D tree (``stem_conv``, ``stem_norm``,
+    ``down_norm_{i}``, ``down_conv_{i}``, ``stage{i}_block{j}``, ``norm``)
+    under upstream ConvNeXt's names."""
+    d = f"{pre}downsample_layers."
+    _conv3d(o, f"{d}0.0.weight", p["stem_conv"])
+    o.put(f"{d}0.0.bias", p["stem_conv"]["bias"])
+    o.ln(f"{d}0.1", p["stem_norm"])
+    for i in _indexed(p, "down_norm_"):
+        o.ln(f"{d}{i}.0", p[f"down_norm_{i}"])
+        _conv3d(o, f"{d}{i}.1.weight", p[f"down_conv_{i}"])
+        o.put(f"{d}{i}.1.bias", p[f"down_conv_{i}"]["bias"])
+    for name in p:
+        if not name.startswith("stage"):
+            continue
+        stage, blk = name[len("stage"):].split("_block")
+        bp, dst = p[name], f"{pre}stages.{stage}.{blk}"
+        _conv3d(o, f"{dst}.dwconv.weight", bp["dwconv"])  # (k, 7, 7, 1, C)
+        o.put(f"{dst}.dwconv.bias", bp["dwconv"]["bias"])
+        o.ln(f"{dst}.norm", bp["norm"])
+        o.dense(f"{dst}.pwconv1", bp["pwconv1"])
+        o.dense(f"{dst}.pwconv2", bp["pwconv2"])
+        o.put(f"{dst}.gamma", bp["gamma"])
+        o.put(f"{dst}.grn.gamma", bp["grn"]["gamma"])
+        o.put(f"{dst}.grn.beta", bp["grn"]["beta"])
+    o.ln(f"{pre}norm", p["norm"])
+
+
+def _head(o: _Out, pre: str, kind: str, p: _Tree) -> None:
+    """A JAX head of class ``kind`` (kvq_tpu/nn/heads.py) under the port's
+    names."""
+    if kind == "VQAHead":
+        o.conv1x1(f"{pre}fc_hid", p["fc_hid"], 3)
+        o.conv1x1(f"{pre}fc_last", p["fc_last"], 3)
+    elif kind == "SimpleVQAHead":
+        o.dense(f"{pre}quality.0", p["fc1"])
+        o.dense(f"{pre}quality.1", p["fc2"])
+    elif kind == "IQAHead":
+        o.dense(f"{pre}fc_hid", p["fc_hid"])
+        o.dense(f"{pre}fc_last", p["fc_last"])
+    elif kind == "VARHead":
+        o.conv1x1(f"{pre}fc", p["fc"], 3)
+    elif kind == "MaxVQAHead":
+        o.conv1x1(f"{pre}fc_hid", p["fc_hid"], 3)
+        o.put(f"{pre}fc_last.weight", p["fc_last_kernel"],
+              lambda k: k.reshape(k.shape + (1, 1, 1)))  # (out_dims, hidden)
+        o.put(f"{pre}fc_last.bias", p["fc_last_bias"])
+    else:
+        raise ValueError(f"unknown head {kind!r}")
+
+
+def _attn_blocks(o: _Out, pre: str, p: _Tree) -> None:
+    """``resblocks_{i}`` of a JAX CLIP transformer -> ``{pre}{i}``."""
+    for i in _indexed(p, "resblocks_"):
+        bp, dst = p[f"resblocks_{i}"], f"{pre}{i}"
+        o.put(f"{dst}.attn.in_proj_weight", bp["attn"]["in_proj"]["kernel"],
+              np.transpose)
+        o.put(f"{dst}.attn.in_proj_bias", bp["attn"]["in_proj"]["bias"])
+        o.dense(f"{dst}.attn.out_proj", bp["attn"]["out_proj"])
+        o.ln(f"{dst}.ln_1", bp["ln_1"])
+        o.ln(f"{dst}.ln_2", bp["ln_2"])
+        o.dense(f"{dst}.mlp.c_fc", bp["mlp_c_fc"])
+        o.dense(f"{dst}.mlp.c_proj", bp["mlp_c_proj"])
+
+
+def _clip_full(o: _Out, p: _Tree, s: _Tree) -> None:
+    """A JAX ``CLIP`` tree (kvq_tpu/nn/clip_model.py) under OpenAI's
+    names: either visual tower, the text encoder, ``logit_scale``."""
+    v, vs = p["visual"], s["visual"]
+    if "attnpool" in v:  # ModifiedResNet
+        for ci in (1, 2, 3):
+            _conv2d(o, f"visual.conv{ci}.weight", v[f"stem_conv{ci}"])
+            o.bn(f"visual.bn{ci}", v[f"stem_bn{ci}"], vs[f"stem_bn{ci}"])
+        for name in v:
+            if not name.startswith("layer"):
+                continue
+            stage, blk = name[len("layer"):].split("_")
+            bp, bs, dst = v[name], vs[name], f"visual.layer{stage}.{blk}"
+            for ci in (1, 2, 3):
+                _conv2d(o, f"{dst}.conv{ci}.weight", bp[f"conv{ci}"])
+                o.bn(f"{dst}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+            _conv2d(o, f"{dst}.downsample.0.weight", bp["downsample_conv"])
+            o.bn(f"{dst}.downsample.1", bp["downsample_bn"],
+                 bs["downsample_bn"])
+        ap = v["attnpool"]
+        o.put("visual.attnpool.positional_embedding",
+              ap["positional_embedding"])
+        for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            o.dense(f"visual.attnpool.{proj}", ap[proj])
+    else:  # the ViT tower
+        _clip(o, "", v)
+        o.ln("visual.ln_post", p["visual_ln_post"])
+        o.put("visual.proj", p["visual_proj"])
+    t = p["text"]
+    o.put("token_embedding.weight", t["token_embedding"])
+    o.put("positional_embedding", t["positional_embedding"])
+    _attn_blocks(o, "transformer.resblocks.", t)
+    o.ln("ln_final", t["ln_final"])
+    o.put("text_projection", t["text_projection"])
+    o.put("logit_scale", p["logit_scale"], lambda a: a.reshape(()))
+
+
 def _unread(params: Mapping, batch_stats: Mapping | None, used: set
             ) -> list[str]:
     return ["/".join(path) for tree, pre in (
@@ -254,19 +349,18 @@ def map_jax_tree(params: Mapping, batch_stats: Mapping | None = None
     for name in p:
         key, _, part = name.rpartition("_")
         tree = p[name]
-        if part == "head" and key == "simpleVQA":
-            o.dense(f"{name}.quality.0", tree["fc1"])
-            o.dense(f"{name}.quality.1", tree["fc2"])
-        elif part == "head":
-            o.conv1x1(f"{name}.fc_hid", tree["fc_hid"], 3)
-            o.conv1x1(f"{name}.fc_last", tree["fc_last"], 3)
+        if part == "head":
+            _head(o, f"{name}.", "SimpleVQAHead" if key == "simpleVQA"
+                  else "VQAHead", tree)
         elif name == "KSVQE_backbone":
             _ksvqe(o, f"{name}.", tree, s[name])
         elif name == "simpleVQA_backbone":
             _resnet(o, tree["trunk"], s[name]["trunk"],
                     (f"{name}.conv1", f"{name}.bn1"),
                     lambda stage: f"{name}.layer{stage}")
-        elif part == "backbone" and "trunk" in tree:  # a Swin-T-3D key
+        elif part == "backbone" and "stem_conv" in tree:  # conv_tiny
+            _convnext(o, f"{name}.", tree)
+        elif part == "backbone" and "trunk" in tree:  # a Swin key
             _swin(o, f"{name}.", tree, tree["trunk"])
         elif part == "backbone":
             raise NotImplementedError(f"model key {key!r} is not ported yet")
@@ -312,9 +406,42 @@ def map_slowfast_tree(params: Mapping, batch_stats: Mapping | None = None
 
 def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None = None
                         ) -> dict[str, torch.Tensor]:
-    """JAX VQANetwork trees (KSVQE and Swin-T-3D keys) -> the port's
-    state_dict."""
+    """JAX VQANetwork trees (every ported key) -> the port's state_dict."""
     return map_jax_tree(params, batch_stats)[0]
+
+
+def _mapped(fill, params, batch_stats=None):
+    used: set = set()
+    o = _Out()
+    fill(o, _Tree(params, (), used), _Tree(batch_stats, ("batch_stats",),
+                                            used))
+    return o.sd, _unread(params, batch_stats, used)
+
+
+def map_convnext_tree(params: Mapping) -> tuple[dict, list[str]]:
+    """A JAX ``ConvNeXt3D`` tree, or a ``ConvNeXt2D`` one (under
+    ``trunk``) -> (the state_dict of the port's module, the unread
+    leaves)."""
+    if "trunk" in params:
+        return _mapped(lambda o, p, s: _convnext(o, "trunk.", p["trunk"]),
+                       params)
+    return _mapped(lambda o, p, s: _convnext(o, "", p), params)
+
+
+def map_head_tree(kind: str, params: Mapping) -> tuple[dict, list[str]]:
+    """A JAX head of class ``kind`` (``VQAHead``, ``SimpleVQAHead``,
+    ``IQAHead``, ``VARHead``, ``MaxVQAHead``) -> (the state_dict of the
+    port's head, the unread leaves)."""
+    return _mapped(lambda o, p, s: _head(o, "", kind, p), params)
+
+
+def map_clip_tree(params: Mapping, batch_stats: Mapping | None = None
+                  ) -> tuple[dict, list[str]]:
+    """A JAX ``CLIP`` tree (ModifiedResNet's BatchNorm statistics in
+    ``batch_stats``) -> (the state_dict of the port's
+    :class:`~kvq_tpu_torch.nn.clip_model.CLIP` under OpenAI's names, the
+    unread leaves)."""
+    return _mapped(_clip_full, params, batch_stats)
 
 
 def _expect(node, keys: set, where: str):

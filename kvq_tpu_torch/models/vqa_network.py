@@ -7,13 +7,18 @@ of the reference ``VQA_Network`` (models/model.py:18-121): one
     (FAST-VQA), ``swin_tiny_grpb_m`` and ``swin_small``, each with a
     VQAHead;
   - ``simpleVQA``: :class:`~kvq_tpu_torch.nn.resnet.FeatureResNet`
-    (``backbone.layers``, default (3, 4, 6, 3)) with a SimpleVQAHead.
+    (``backbone.layers``, default (3, 4, 6, 3)) with a SimpleVQAHead;
+  - ``conv_tiny``: :class:`~kvq_tpu_torch.nn.convnext.ConvNeXt3D` at its
+    defaults (depths (3, 3, 9, 3), dims 96-768, patch_t 2, no DropPath)
+    over ``batch["asesthetic"]`` [sic], with a VQAHead; ``backbone`` is not
+    read, as in the JAX package;
+  - ``swin_2d_tiny``: kvq_tpu's ``swin_2d_tiny`` trunk (windows (1, 7, 7))
+    with a VQAHead, a key of the port only.
 
-Every head is as wide as its backbone's ``num_features`` (9472 for
-``simpleVQA``); ``head.in_channels`` is ignored, as the JAX package
-ignores it.
-
-``conv_tiny`` is not ported yet.
+Several keys (``"swin_tiny,conv_tiny"``, DOVER's technical + aesthetic
+layout) sum their scores under ``reduce_scores``.  Every head is as wide as
+its backbone's ``num_features`` (9472 for ``simpleVQA``);
+``head.in_channels`` is ignored, as the JAX package ignores it.
 
 :func:`build_model` is the eval entry point: it builds on ``device`` (CUDA
 by default), fills every parameter from a seeded ``torch.Generator`` and
@@ -34,6 +39,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..nn.convnext import ConvNeXt3D
 from ..nn.heads import SimpleVQAHead, VQAHead
 from ..nn.ksvqe import KSVQE, ksvqe_config
 from ..nn.resnet import BatchNorm, FeatureResNet
@@ -58,10 +64,12 @@ def build_backbone(key: str, hypers: dict | None):
     bb = (hypers or {}).get("backbone") or {}
     if key == "KSVQE":
         return KSVQE(ksvqe_config(bb))
-    if key in SWIN_KEYS:
+    if key in SWIN_KEYS or key == "swin_2d_tiny":
         return SwinTransformer3D(swin_config(key, bb))
     if key == "simpleVQA":
         return FeatureResNet(tuple(bb.get("layers", (3, 4, 6, 3))))
+    if key == "conv_tiny":
+        return ConvNeXt3D()
     raise NotImplementedError(f"model key {key!r} is not ported yet")
 
 
@@ -114,7 +122,9 @@ class VQANetwork(nn.Module):
 def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Deterministic random weights from one ``torch.Generator``: lecun
     normal for products, truncated normal(0.02) for the position tables,
-    identity affine for the norms, zero biases."""
+    identity affine for the norms, zero biases; ConvNeXt's layer scales and
+    GRN gains at 1, so that every residual branch counts in the score;
+    CLIP's ``logit_scale`` as its module sets it."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -130,8 +140,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             normal(p, 0.02)
         elif leaf == "positional_embedding":
             normal(p, 0.01)
-        elif leaf in ("a1", "a2"):
+        elif leaf in ("a1", "a2", "logit_scale"):
             continue
+        elif leaf == "gamma":  # ConvNeXt's layer scale, GRN's gain
+            p.fill_(1.0)
         elif p.dim() >= 2:
             normal(p, p[0].numel() ** -0.5)
         elif leaf == "weight":  # norms

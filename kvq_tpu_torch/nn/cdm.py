@@ -9,6 +9,16 @@ kvq_tpu/nn/cdm.py; reference KSVQE_model.py).
   - :class:`SemanticFiLM`      == Semantic_Transformation2 (:817-835);
   - :class:`DistFiLM`          == Dist_Transformation3 (:934-960).
 
+The reference's variants that no config uses, as kvq_tpu rebuilds them
+(kvq_tpu/nn/cdm.py:183-302): :class:`SemanticFiLM4` (channel FiLM from the
+field's mean and std), :class:`SemanticFiLM6` (spatial then channel FiLM,
+the channel gain from ``get_beta(mean)``: the reference's ``get_gamma`` is
+dead and, as in kvq_tpu, not built), :class:`SemanticFiLM8` (a 3x3 conv
+and LeakyReLU, then spatial FiLM), :class:`DistFiLM5` (token-wise FiLM
+from 3x3x3 convs) and :class:`DistFiLM7` (token-wise then channel FiLM).
+The means and stds are :func:`~kvq_tpu_torch.nn.layers.avg_std_pool` over
+every axis but the channels.
+
 With ``use_pallas`` the attentions run K2
 (:func:`~kvq_tpu_torch.ops.window_attention.flash_attention_nobias_cl`) at
 eval: the CUDA kernel for CUDA tensors, its plain version for CPU tensors.
@@ -23,7 +33,7 @@ import torch
 from torch import nn
 
 from ..ops.window_attention import flash_attention_nobias_cl
-from .layers import conv1x1
+from .layers import avg_std_pool, conv1x1, conv_channels_last
 
 
 class AdapterMLP(nn.Sequential):
@@ -117,13 +127,93 @@ class DistFiLM(nn.Module):
 
     def forward(self, x, inp):
         # x: (B, T, H, W, C); inp: (B, T*H*W, C)
-        B, C = x.shape[0], x.shape[-1]
-        xf = x.reshape(B, -1, C).float()
-        n = xf.shape[1]
-        mean = xf.mean(dim=1)
-        var = xf.var(dim=1, unbiased=False) * (n / max(n - 1, 1))
-        std = torch.sqrt(var + 1e-10)
-        dt = self.get_gamma.weight.dtype
-        gamma = torch.sigmoid(self.get_gamma(std.to(dt)))
-        beta = self.get_beta(mean.to(dt))
+        gamma, beta = _channel_film(self, x)
         return gamma[:, None, :] * inp + beta[:, None, :]
+
+
+def _channel_pool(x):
+    """(mean, std) over every axis of ``x`` but the first and the last."""
+    return avg_std_pool(x.reshape(x.shape[0], -1, x.shape[-1]), (1,))
+
+
+def _channel_film(mod, x):
+    """sigmoid(get_gamma(std)), get_beta(mean) of ``x``'s channels."""
+    mean, std = _channel_pool(x)
+    dt = mod.get_gamma.weight.dtype
+    return (torch.sigmoid(mod.get_gamma(std.to(dt))),
+            mod.get_beta(mean.to(dt)))
+
+
+class SemanticFiLM4(nn.Module):
+    """Channel FiLM: sigmoid(get_gamma(std)) * inp + get_beta(mean), the
+    pools over (H, W) of x.  x, inp: (N, H, W, C)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.get_gamma = nn.Linear(dim, dim)
+        self.get_beta = nn.Linear(dim, dim)
+
+    def forward(self, x, inp):
+        gamma, beta = _channel_film(self, x)
+        return gamma[:, None, None, :] * inp + beta[:, None, None, :]
+
+
+class SemanticFiLM6(SemanticFiLM):
+    """:class:`SemanticFiLM`, then channel FiLM with sigmoid(get_beta(mean))
+    as the gain and get_beta(std) as the shift.  x, inp: (N, H, W, C)."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim)
+        self.get_beta = nn.Linear(dim, dim)
+
+    def forward(self, x, inp):
+        inp1 = super().forward(x, inp)
+        mean, std = _channel_pool(x)
+        dt = self.get_beta.weight.dtype
+        cgamma = torch.sigmoid(self.get_beta(mean.to(dt)))
+        cbeta = self.get_beta(std.to(dt))
+        return cgamma[:, None, None, :] * inp1 + cbeta[:, None, None, :]
+
+
+class SemanticFiLM8(SemanticFiLM):
+    """A 3x3 conv (C -> C) and LeakyReLU(0.2), then :class:`SemanticFiLM`
+    of its output.  x, inp: (N, H, W, C)."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim)
+        self.conv1 = nn.Conv2d(dim, dim, 3, padding=1)
+
+    def forward(self, x, inp):
+        out = nn.functional.leaky_relu(conv_channels_last(self.conv1, x), 0.2)
+        return super().forward(out, inp)
+
+
+class DistFiLM5(nn.Module):
+    """Token-wise FiLM: sigmoid(conv_gama(x)) * inp + conv_beta(x), 3x3x3
+    convs to one channel.  x: (B, T, H, W, C); inp: (B, T*H*W, C)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.conv_gama = nn.Conv3d(dim, 1, 3, padding=1)
+        self.conv_beta = nn.Conv3d(dim, 1, 3, padding=1)
+
+    def forward(self, x, inp):
+        B = x.shape[0]
+        gamma = torch.sigmoid(conv_channels_last(self.conv_gama, x))
+        beta = conv_channels_last(self.conv_beta, x)
+        return gamma.reshape(B, -1, 1) * inp + beta.reshape(B, -1, 1)
+
+
+class DistFiLM7(DistFiLM5):
+    """:class:`DistFiLM5`, then :class:`DistFiLM`'s channel FiLM.  x:
+    (B, T, H, W, C); inp: (B, T*H*W, C)."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim)
+        self.get_gamma = nn.Linear(dim, dim)
+        self.get_beta = nn.Linear(dim, dim)
+
+    def forward(self, x, inp):
+        inp1 = super().forward(x, inp)
+        gamma, beta = _channel_film(self, x)
+        return gamma[:, None, :] * inp1 + beta[:, None, :]

@@ -88,13 +88,17 @@ class CLIPAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = nn.Linear(width, width)
 
-    def forward(self, x):
+    def forward(self, x, attn_bias=None):
+        """``attn_bias``: an additive (N, N) float32 bias of the scores,
+        e.g. the text encoder's causal mask."""
         B, N, C = x.shape
         h, hd = self.heads, C // self.heads
         q, k, v = (F.linear(x, self.in_proj_weight, self.in_proj_bias)
                    .reshape(B, N, 3, h, hd).permute(2, 0, 3, 1, 4))
         attn = torch.matmul((q * hd ** -0.5).float(),
                             k.float().transpose(-1, -2))
+        if attn_bias is not None:
+            attn = attn + attn_bias
         attn = attn.softmax(dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, C)
         return self.out_proj(out)
@@ -112,8 +116,8 @@ class ResidualAttentionBlock(nn.Module):
         ]))
         self.ln_2 = LayerNorm(width)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
+    def forward(self, x, attn_bias=None):
+        x = x + self.attn(self.ln_1(x), attn_bias)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -128,6 +132,7 @@ class VisualTransformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, patch_size: int,
                  image_grid: int):
         super().__init__()
+        self.image_grid = image_grid
         self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size,
                                bias=False)
         self.class_embedding = nn.Parameter(torch.zeros(width))
@@ -135,6 +140,26 @@ class VisualTransformer(nn.Module):
             torch.zeros(1 + image_grid ** 2, width))
         self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, layers, heads)
+
+    def tokens(self, x, after_block=None):
+        """(B, H, W, 3) CLIP-normalised -> the (B, 1 + L, C) tokens after
+        the last block, the class token first; ``after_block(i, x)``, when
+        given, replaces the tokens after block ``i``."""
+        B = x.shape[0]
+        dt = self.conv1.weight.dtype
+        x = self.conv1(x.to(dt).permute(0, 3, 1, 2))  # NCHW inside
+        gh, gw = x.shape[2], x.shape[3]
+        x = x.flatten(2).transpose(1, 2)
+        cls = self.class_embedding.to(dt).expand(B, 1, -1)
+        x = torch.cat([cls, x], dim=1)
+        pe = resize_pos_embed_2d(self.positional_embedding, self.image_grid,
+                                 (gh, gw))
+        x = self.ln_pre(x + pe.to(dt)[None])
+        for i, blk in enumerate(self.transformer.resblocks):
+            x = blk(x)
+            if after_block is not None:
+                x = after_block(i, x)
+        return x
 
 
 class CLIPVisionTower(nn.Module):
@@ -145,7 +170,6 @@ class CLIPVisionTower(nn.Module):
                  image_grid=14, clip_location=8, cls_use=True,
                  adapter_ratio=0.5):
         super().__init__()
-        self.image_grid = image_grid
         self.clip_location = clip_location
         self.adapter_ratio = adapter_ratio
         self.visual = VisualTransformer(width, layers, heads, patch_size,
@@ -154,25 +178,16 @@ class CLIPVisionTower(nn.Module):
         self.adapter_layer = nn.ModuleList(
             [AdapterMLP(width, width) for _ in range(n_adapters)])
 
+    def _adapt(self, i, x):
+        """The cls-token adapter of block ``i`` (from ``clip_location``)."""
+        if i < self.clip_location or not len(self.adapter_layer):
+            return x
+        a = self.adapter_layer[i - self.clip_location](x[:, :1])
+        cls_tok = self.adapter_ratio * a + (1 - self.adapter_ratio) * x[:, :1]
+        return torch.cat([cls_tok, x[:, 1:]], dim=1)
+
     def forward(self, x):
-        vis = self.visual
-        B = x.shape[0]
-        dt = vis.conv1.weight.dtype
-        x = vis.conv1(x.to(dt).permute(0, 3, 1, 2))  # NCHW inside
-        gh, gw = x.shape[2], x.shape[3]
-        x = x.flatten(2).transpose(1, 2)
-        cls = vis.class_embedding.to(dt).expand(B, 1, -1)
-        x = torch.cat([cls, x], dim=1)
-        pe = resize_pos_embed_2d(vis.positional_embedding, self.image_grid,
-                                 (gh, gw))
-        x = vis.ln_pre(x + pe.to(dt)[None])
-        for i, blk in enumerate(vis.transformer.resblocks):
-            x = blk(x)
-            if i >= self.clip_location and len(self.adapter_layer):
-                a = self.adapter_layer[i - self.clip_location](x[:, :1])
-                cls_tok = (self.adapter_ratio * a
-                           + (1 - self.adapter_ratio) * x[:, :1])
-                x = torch.cat([cls_tok, x[:, 1:]], dim=1)
+        x = self.visual.tokens(x, self._adapt)
         cls_token, pat_token = x[:, 0], x[:, 1:]
         cf, pf = cls_token.float(), pat_token.float()
         cls_attn = torch.einsum("bc,blc->bl", cf, pf) / (

@@ -31,6 +31,11 @@ def layer_norm(x, weight, bias, eps: float = LN_EPS):
     return (y + bias.float()).to(x.dtype)
 
 
+def conv_channels_last(conv, x):
+    """A 2-D or 3-D conv module on a channels-last tensor (N, ..., C)."""
+    return conv(x.movedim(-1, 1)).movedim(1, -1)
+
+
 def conv1x1(conv, x):
     """A 1x1(x1) Conv applied channels-last as a matmul (x: (..., C_in))."""
     w = conv.weight.reshape(conv.weight.shape[0], -1)

@@ -28,7 +28,10 @@ gather of :func:`expand_bias_planes`.
 
 :class:`SwinTransformer3D` is the whole Video-Swin trunk of the model keys
 ``swin_tiny``, ``swin_tiny_grpb``, ``swin_tiny_grpb_m`` and ``swin_small``
-(presets in :func:`swin_config`).
+(presets in :func:`swin_config`), and of :func:`swin_2d_tiny`, the 2D
+Swin-T at windows of (1, 7, 7), which the port also builds under the model
+key ``swin_2d_tiny`` (with a VQAHead; kvq_tpu's VQANetwork has no such
+key).
 """
 
 from __future__ import annotations
@@ -359,8 +362,8 @@ def _rematerialised(blk, x, dp):
 class SwinConfig:
     """kvq_tpu's SwinConfig without the options that no preset and no
     ``backbone`` override sets (``drop_rate``, ``attn_drop_rate``,
-    ``jump_attention``, ``input_key``): the trunk reads the technical
-    view.  ``use_checkpoint`` (remat, on by default as in JAX) changes no
+    ``jump_attention``, ``input_key``; nor does :func:`swin_2d_tiny` take
+    them): the trunk reads the technical view.  ``use_checkpoint`` (remat, on by default as in JAX) changes no
     result, only what a training forward keeps for its backward."""
 
     patch_size: tuple[int, int, int] = (2, 4, 4)
@@ -385,8 +388,12 @@ _PRESETS = {  # reference models/model.py:30-47
     # FAST-VQA-M: small windows, no fragment bias
     "swin_tiny_grpb_m": dict(window_size=(4, 4, 4), frag_biases=(False,) * 4),
     "swin_small": dict(depths=(2, 2, 18, 2), frag_biases=(False,) * 4),
+    # the 2D Swin-T (kvq_tpu/nn/swin.py:883-898, swin_2d_tiny)
+    "swin_2d_tiny": dict(patch_size=(1, 4, 4), window_size=(1, 7, 7),
+                         frag_biases=(False,) * 4),
 }
-SWIN_KEYS = tuple(_PRESETS)  # the model keys whose backbone is a Swin trunk
+# kvq_tpu's VQANetwork keys whose backbone is a Swin trunk
+SWIN_KEYS = tuple(k for k in _PRESETS if k != "swin_2d_tiny")
 
 
 def swin_config(key: str, backbone_cfg: dict | None) -> SwinConfig:
@@ -401,6 +408,17 @@ def swin_config(key: str, backbone_cfg: dict | None) -> SwinConfig:
     if "use_pallas" in bb:
         kw["use_pallas"] = bool(bb["use_pallas"])
     return SwinConfig(**kw)
+
+
+def swin_2d_tiny(**overrides) -> "SwinTransformer3D":
+    """The 2D Swin-T (reference SwinTransformer2D, swin_backbone.py:
+    1098-1103: timm's swin_tiny_patch4_window7_224 without its classifier)
+    as kvq_tpu builds it: the 3D trunk with a patch and window of depth 1,
+    so that every block is a per-frame 2D shifted-window attention over 49
+    tokens, and no fragment bias.  ``overrides``: fields of
+    :class:`SwinConfig`.  Takes (B, T, H, W, 3), T frames scored alike."""
+    return SwinTransformer3D(SwinConfig(**{**_PRESETS["swin_2d_tiny"],
+                                           **overrides}))
 
 
 def make_stages(cfg: SwinConfig) -> nn.ModuleList:

@@ -73,9 +73,18 @@ def test_fused_swin_block_kernel_matches_plain_n64(cuda, shift):
     _check_fused_swin_block(cuda, (8, 8, 12), (4, 4, 4), shift, False)
 
 
-def _check_fused_swin_block(cuda, dims, window, shift, use_frag):
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [(0, 0, 0), (0, 3, 3)])
+def test_fused_swin_block_kernel_matches_plain_n49(cuda, shift):
+    """swin_2d_tiny's (1, 7, 7) windows: N = 49 (odd, no multiple of 8),
+    seams in H and W only; stage 0's C = 96 over three heads of 32."""
+    _check_fused_swin_block(cuda, (2, 14, 21), (1, 7, 7), shift, False,
+                            C=96, h=3)
+
+
+def _check_fused_swin_block(cuda, dims, window, shift, use_frag, C=64, h=2):
     x, params, rel, frag, geo = _block_inputs(dims, window, shift, use_frag,
-                                              C=64, h=2)
+                                              C=C, h=h)
     bf = torch.bfloat16
     args = (x.to(cuda, bf), {k: v.to(cuda, bf) for k, v in params.items()},
             rel.to(cuda), None if frag is None else frag.to(cuda), geo)
@@ -128,6 +137,9 @@ def _multipliers(BW, seed, device):
     # three heads, 16 windows
     ((8, 28, 28), (8, 7, 7), (0, 0, 0), True, 96, 3),
     ((8, 28, 28), (8, 7, 7), (4, 3, 3), True, 96, 3),
+    # swin_2d_tiny's (1, 7, 7) windows: N = 49, seams in H and W only
+    ((2, 14, 21), (1, 7, 7), (0, 0, 0), False, 96, 3),
+    ((2, 14, 21), (1, 7, 7), (0, 3, 3), False, 96, 3),
 ])
 def test_train_swin_block_kernels_match_plain(cuda, dims, window, shift,
                                               use_frag, C, h):
