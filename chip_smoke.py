@@ -611,22 +611,24 @@ def k4_case(k4f, k4b, tag, stage, shifted, gen, stages, window, batch, reps,
     torch.cuda.empty_cache()
 
 
-def train_kernel_phase(card: str):
-    """K4 at the train geometries of stages 0-2 and K5 at stage 3's (B=4,
-    T=32), forward and backward, against their plain versions; returns
-    timing records of the calls of one train step."""
+def train_kernel_phase(card: str, batch: int = TRAIN_B):
+    """K4 at the train geometries of stages 0-2 and K5 at stage 3's (T=32,
+    ``batch`` rows: the one-process step's 4, or the one row a rank of the
+    (data, fsdp) step), forward and backward, against their plain
+    versions; returns timing records of the calls of one train step."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    at = "" if batch == TRAIN_B else f" B={batch}"
     k4f, k4b, k5f, k5b = _agg(), _agg(), _agg(), _agg()
     for stage in range(3):
         for shifted in (False, True):
-            k4_case(k4f, k4b, "K4", stage, shifted, gen, TRAIN_STAGES,
-                    (8, 7, 7), TRAIN_B, TRAIN_REPS[stage], card)
+            k4_case(k4f, k4b, f"K4{at}", stage, shifted, gen, TRAIN_STAGES,
+                    (8, 7, 7), batch, TRAIN_REPS[stage], card)
     dims, C, h, use_frag = TRAIN_STAGES[3]
     for shifted in (False, True):
-        geo = padded_geometry(dims, C, h, use_frag, shifted, batch=TRAIN_B)
-        k5_case(geo, gen, card, "K5 KSVQE stage3", 1, k5f, k5b)
+        geo = padded_geometry(dims, C, h, use_frag, shifted, batch=batch)
+        k5_case(geo, gen, card, f"K5 KSVQE stage3{at}", 1, k5f, k5b)
     return k4f, k4b, k5f, k5b
 
 
@@ -1568,17 +1570,50 @@ def reset_counts() -> None:
 
 def step_agreement(what, ta, tb, aux_a, aux_b, checked_prefix) -> dict:
     """One train step of trainer ``ta`` against the same step of ``tb``
-    (same weights, batch and generator seed): the loss within LOSS_TOL, all
-    gradients together and each gradient whose name starts with
-    ``checked_prefix`` (the Swin stages, whose gradients the kernels
-    produce) within TRAIN_GRAD_TOL of its norm; prints and fails."""
+    (same weights, batch and generator seed): :func:`grad_agreement` of
+    their gradients."""
+    grads = [{n: p.grad for n, p in t.model.named_parameters()
+              if p.grad is not None} for t in (ta, tb)]
+    return grad_agreement(what, *grads, aux_a, aux_b, checked_prefix)
+
+
+def grad_agreement(what, grads_a, grads_b, aux_a, aux_b,
+                   checked_prefix) -> dict:
+    """One train step's loss terms and gradients (name -> tensor) against
+    another's: the loss within LOSS_TOL, all gradients together and each
+    gradient whose name starts with ``checked_prefix`` (the Swin stages,
+    whose gradients the kernels produce) within TRAIN_GRAD_TOL of its norm;
+    prints (:func:`grad_gaps`) and fails."""
+    gaps = grad_gaps(what, grads_a, grads_b, aux_a, aux_b, checked_prefix)
+    if not (math.isfinite(aux_a["total_loss"])
+            and gaps["loss_abs_diff"] <= gaps["loss_tol"]):
+        fail(f"{what}: the losses disagree")
+    if not (math.isfinite(gaps["grad_rel_all"])
+            and gaps["grad_rel_all"] <= TRAIN_GRAD_TOL):
+        fail(f"{what}: the gradients disagree")
+    worst = gaps["worst_swin_grad_rel"]
+    if not (math.isfinite(worst) and worst <= TRAIN_GRAD_TOL):
+        fail(f"{what}: the gradient of {gaps['worst_swin_grad_name']} "
+             f"disagrees")
+    return gaps
+
+
+def grad_gaps(what, grads_a, grads_b, aux_a, aux_b, checked_prefix) -> dict:
+    """The gaps of one train step's loss terms and gradients to another's:
+    the loss's |d| (and its tolerance), all gradients together and each
+    gradient relative to its norm, the worst of those whose name starts
+    with ``checked_prefix``; prints them."""
+    import torch
+
     dl = abs(aux_a["total_loss"] - aux_b["total_loss"])
     ltol = LOSS_TOL * max(1.0, abs(aux_b["total_loss"]))
+    if not set(grads_b) <= set(grads_a):
+        fail(f"{what}: gradients of different parameters")
     rows, sq_d, sq_p = [], 0.0, 0.0
-    for (name, pa), pb in zip(ta.model.named_parameters(), tb.params):
-        if pa.grad is None:
-            continue
-        ga, gb = pa.grad.float(), pb.grad.float()
+    for name, ga in grads_a.items():  # a gradient b lacks counts as zeros
+        ga = ga.float()
+        gb = grads_b[name].float().to(ga.device) if name in grads_b else \
+            torch.zeros_like(ga)
         d, n = (ga - gb).norm().item(), gb.norm().item()
         sq_d, sq_p = sq_d + d * d, sq_p + n * n
         rows.append((d, n, gb.numel(), name))
@@ -1587,6 +1622,7 @@ def step_agreement(what, ta, tb, aux_a, aux_b, checked_prefix) -> dict:
                  reverse=True)
     checked = [r for r in rel if r[4].startswith(checked_prefix)]
     worst, _, _, _, worst_name = checked[0]
+    median = checked[len(checked) // 2][0]
 
     def show(rs):
         return [(float(f"{r:.3g}"), float(f"{d:.3g}"), float(f"{n:.3g}"), k,
@@ -1596,17 +1632,13 @@ def step_agreement(what, ta, tb, aux_a, aux_b, checked_prefix) -> dict:
           f"{len(rows)} gradients, all together ||g_a - g_b|| / ||g_b|| = "
           f"{total:.4g} (tol {TRAIN_GRAD_TOL}); the {len(checked)} "
           f"Swin-stage gradients, worst (rel, |d|, |g_b|, numel, name): "
-          f"{show(checked)} (tol {TRAIN_GRAD_TOL}); all gradients, worst: "
+          f"{show(checked)}, median {median:.3g}; all gradients, worst: "
           f"{show(rel)}", flush=True)
-    if not (math.isfinite(aux_a["total_loss"]) and dl <= ltol):
-        fail(f"{what}: the losses disagree")
-    if not (math.isfinite(total) and total <= TRAIN_GRAD_TOL):
-        fail(f"{what}: the gradients disagree")
-    if not (math.isfinite(worst) and worst <= TRAIN_GRAD_TOL):
-        fail(f"{what}: the gradient of {worst_name} disagrees")
     return {"loss_a": aux_a, "loss_b": aux_b, "loss_abs_diff": dl,
+            "loss_tol": ltol,
             "grad_rel_all": total, "swin_grads": len(checked),
             "grads_total": len(rows), "worst_swin_grad_rel": worst,
+            "median_swin_grad_rel": median,
             "worst_swin_grad_name": worst_name, "worst_grads": rel[:8]}
 
 
@@ -3333,8 +3365,350 @@ def torchrun_path(card: str, files: dict) -> dict:
             "phase_s": time.time() - t_phase}
 
 
+# --------------------------------------------------------------------------
+# the (data, fsdp) layout (kvq_tpu_torch/parallel/fsdp.py): KSVQE at full
+# width on four gloo ranks sharing the card, data 2 x fsdp 2, the shipped
+# global batch of 4 (one row a rank); its eval under the layout; the dry run
+
+FSDP_RANKS = 4
+FSDP_SEED = 21
+# config/Kwai_KSVQE.yml's train config with the random parts off (QRS sigma
+# 0, DropPath 0; the head's dropout is set to 0 on the model), so that the
+# sharded step and the one-process step draw nothing
+FSDP_CONFIG = json.loads(json.dumps(TRAIN_CONFIG))
+FSDP_CONFIG["model"]["args"]["KSVQE"]["backbone"].update(
+    sigma=0.0, drop_path_rate=0.0)
+# the same on the plain path (no kernel), in bf16 and in float32; see
+# fsdp_path
+FSDP_PLAIN_CONFIG = json.loads(json.dumps(FSDP_CONFIG))
+FSDP_PLAIN_CONFIG["model"]["args"]["KSVQE"]["backbone"]["use_pallas"] = False
+FSDP_F32_CONFIG = json.loads(json.dumps(FSDP_PLAIN_CONFIG))
+FSDP_F32_CONFIG["model"]["compute_dtype"] = "float32"
+# kvq_tpu_torch/ops kernels a step a rank: K4 on stages 0-2, K5 on stage 3
+FSDP_STEP_LAUNCHES = dict(NO_LAUNCHES, train_swin_block=10,
+                          train_swin_block_bwd=10, window_attention_train=2,
+                          window_attention_train_bwd=2)
+FSDP_EVAL_LAUNCHES = dict(NO_LAUNCHES, fused_swin_block=12,
+                          flash_attention_nobias_cl=9)
+
+
+def _fsdp_batches() -> list[dict]:
+    """The train batches (B=4 each, the same in every process)."""
+    rng = np.random.default_rng(FSDP_SEED)
+    return [make_train_batch(rng, i) for i in range(TRAIN_STEPS + 1)]
+
+
+def _fsdp_eval_batches() -> list[dict]:
+    """One eval video a rank at the shipped eval shapes, stamped with its
+    dataset index."""
+    rng = np.random.default_rng(FSDP_SEED + 1)
+    return [dict(make_batch(rng, i), sample_index=np.asarray([i]))
+            for i in range(FSDP_RANKS)]
+
+
+def _equal_on_ranks(tensors) -> bool:
+    """Whether this rank's tensors equal rank 0's, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    return bool(torch.equal(flat, ref))
+
+
+def _sharded_first_step(cfg, mesh, batch, rank, dev):
+    """The model of ``cfg`` (seed 0, the head's dropout off), its sharded
+    step and state, and the loss terms and whole reduced gradient of its
+    first step on this rank's row of ``batch``."""
+    from kvq_tpu_torch.data.pipeline import (
+        train_fields,
+        train_host_tensors,
+        view_dtype,
+    )
+    from kvq_tpu_torch.models.vqa_network import build_train_model
+    from kvq_tpu_torch.parallel import fsdp
+
+    model = build_train_model(cfg, dev, seed=0)
+    model.KSVQE_head.dropout_ratio = 0.0
+    step, state = fsdp.make_sharded_train_step(model, cfg, mesh,
+                                               steps_per_epoch=100, seed=0)
+    fields, cast = train_fields(["KSVQE"]), view_dtype(cfg)
+
+    def mine(b):
+        return {k: v.to(dev) for k, v in train_host_tensors(
+            {k: v[rank:rank + 1] for k, v in b.items()}, fields, cast,
+            pin=dev.type == "cuda").items()}
+
+    aux = {k: float(v) for k, v in step(state, mine(batch)).items()}
+    idx = [i for i, t in enumerate(state.trainable) if t]
+    grads = dict(zip((state.names[i] for i in idx), state.gather(
+        [state.params[i].grad for i in idx], idx)))
+    return model, step, state, mine, aux, grads
+
+
+def _rank_fsdp(rank: int, root: str) -> dict:
+    """One rank of the (data, fsdp) phase: the first step on the plain path
+    in float32, then in bf16 (each's whole reduced gradient saved by rank
+    0), then on the kernel path in bf16: the first step (its gradient
+    saved), timed steps, the collectives timed alone, the state's bytes,
+    the parameters compared across ranks, one sharded eval forward (rank 0
+    also scores the four videos in one process), then the dry run's three
+    flavours.  The first steps run with TF32 off."""
+    import torch
+
+    from kvq_tpu_torch.models.vqa_network import (
+        VQANetwork,
+        cast_model,
+        compute_dtype,
+    )
+    from kvq_tpu_torch.parallel import fsdp
+    from kvq_tpu_torch.parallel.dryrun import dryrun_multichip
+    from kvq_tpu_torch.parallel.mesh import make_mesh
+    from kvq_tpu_torch.parallel.steps import sum_flat
+    from kvq_tpu_torch.train.evaluator import Evaluator
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = FSDP_CONFIG
+    mesh = make_mesh(data=2, fsdp=2)
+    host = _fsdp_batches()
+    plain_aux, plain_counts = {}, {}
+    for name, plain_cfg in (("f32", FSDP_F32_CONFIG),
+                            ("plain", FSDP_PLAIN_CONFIG)):
+        reset_counts()
+        with tf32(False):
+            out = _sharded_first_step(plain_cfg, mesh, host[0], rank, dev)
+        plain_counts[name], plain_aux[name] = kernel_counts(), out[4]
+        if rank == 0:
+            torch.save({n: g.cpu() for n, g in out[5].items()},
+                       os.path.join(root, f"fsdp.{name}.grads.pt"))
+        del out
+        torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with tf32(False):
+        model, step, state, mine, aux, grads = _sharded_first_step(
+            cfg, mesh, host[0], rank, dev)
+    first = kernel_counts()
+    setup_s = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({n: g.cpu() for n, g in grads.items()},
+                   os.path.join(root, "fsdp.kernel.grads.pt"))
+    del grads
+    batches = [mine(b) for b in host[1:]]
+    idx = [i for i, t in enumerate(state.trainable) if t]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for b in batches:
+        last = step(state, b)
+    last = {k: float(v) for k, v in last.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    shards = [state.params[i].detach() for i in idx]
+    gather_ms = cuda_ms(lambda: state.gather(shards, idx), 3)
+    whole = state.gather(shards, idx)
+    reduce_ms = cuda_ms(lambda: sum_flat(whole), 3)
+    del whole
+    weights = state.whole()
+    equal = _equal_on_ranks(weights.values())
+
+    evals = _fsdp_eval_batches()
+    eval_fn = fsdp.make_sharded_eval_step(model, cfg)
+    reset_counts()
+    index, scores, labels = eval_fn(state, [evals[rank]])
+    eval_counts = kernel_counts()
+    one = None
+    if rank == 0:  # the same four videos in one process
+        with torch.device(dev):
+            net = cast_model(VQANetwork(cfg), compute_dtype(cfg)).eval()
+        net.load_state_dict({**weights, **dict(model.named_buffers())})
+        one = [s for _, _, p in Evaluator(cfg, model=net, device=dev)
+               .scored_batches(evals) for s in p]
+        del net
+    del weights
+    torch.cuda.empty_cache()
+    dry = dryrun_multichip(FSDP_RANKS, dev, card=True)
+    return {"setup_s": setup_s, "aux": aux, "aux_f32": plain_aux["f32"],
+            "aux_plain": plain_aux["plain"], "plain_counts": plain_counts,
+            "first_step": first,
+            "timed": timed, "last": last, "steps_per_s": TRAIN_STEPS / wall,
+            "gather_ms": gather_ms, "reduce_ms": reduce_ms,
+            "peak_memory_bytes": peak, "state_bytes": state.state_bytes(),
+            "params_equal_rank0": equal, "eval": eval_counts,
+            "eval_rows": [index, scores, labels], "one_process": one,
+            "dryrun": dry}
+
+
+def swin2d_dropout_check(card: str) -> dict:
+    """One train forward and backward of swin_2d_tiny (B=4, T=8, 224 px,
+    bf16, remat off) with dropout on, counted by route: with
+    ``attn_drop_rate`` > 0 no block takes K4 or K5 (the plain attention
+    drops its weights); with ``drop_rate`` alone each block declines K4 and
+    takes K5 (12 + 12)."""
+    import torch
+
+    from kvq_tpu_torch.models.vqa_network import cast_model
+    from kvq_tpu_torch.nn.swin import swin_2d_tiny
+
+    x = torch.randn(SWIN2D_TRAIN_B, SWIN2D_T, SWIN2D_PX, SWIN2D_PX, 3,
+                    generator=torch.Generator().manual_seed(5)).cuda()
+    out = {}
+    for rates, want in (
+            ((0.0, 0.1), {}),
+            ((0.1, 0.0), {"window_attention_train": 12,
+                          "window_attention_train_bwd": 12})):
+        with torch.device("cuda"):
+            m = swin_2d_tiny(use_pallas=True, use_checkpoint=False,
+                             drop_rate=rates[0], attn_drop_rate=rates[1])
+        m = cast_model(m, torch.bfloat16).train()
+        reset_counts()
+        loss = m(x.bfloat16(), torch.Generator("cuda").manual_seed(0)
+                 ).float().square().mean()
+        loss.backward()
+        loss = loss.detach()
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        if counts != dict(NO_LAUNCHES, **want) or not math.isfinite(
+                float(loss)):
+            fail(f"swin_2d_tiny with drop_rate, attn_drop_rate = {rates}: "
+                 f"launches {counts}, loss {float(loss)}")
+        out[f"drop {rates[0]}, attn_drop {rates[1]}"] = {
+            "launches": counts, "loss": float(loss)}
+        del m, loss
+    print(f"swin_2d_tiny train step with dropout (B={SWIN2D_TRAIN_B}, "
+          f"T={SWIN2D_T}, {SWIN2D_PX} px, bf16): {json.dumps(out)}; {card}",
+          flush=True)
+    return out
+
+
+def fsdp_path(card: str) -> dict:
+    """The (data, fsdp) sharded step of KSVQE at full width (bf16, B=4,
+    T=32, 112 px resize views, the random parts off) on four gloo ranks on
+    the one card (NCCL refuses two ranks on one GPU), TF32 off in every
+    compared step: its first step in float32 on the plain path against the
+    one-process Trainer step on the same 4 rows from the same weights (the
+    sharded semantics: the global loss, the gradient's scale), and on the
+    kernel path in bf16 against the same sharded step on the plain path in
+    bf16; the loss within LOSS_TOL and all gradients together within
+    TRAIN_GRAD_TOL of their norm, and in float32 each Swin gradient too (in
+    bf16 each is reported: see below); no launch on the plain path, K4
+    10 + 10 and K5 2 + 2 a step a rank on the kernel path, the ranks'
+    gathered parameters bit-equal after the timed steps, one sharded eval
+    forward with 12 K1 + 9 K2 a rank and its gathered scores within
+    SCORE_TOL of one process's; steps/s, the collectives' ms, each rank's
+    peak memory and sharded-state bytes beside the DDP route's; the dry
+    run's three flavours at 4 ranks (the card's block geometry); then
+    swin_2d_tiny trained with dropout, by route."""
+    import torch
+
+    from kvq_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="kvq_fsdp_")
+    with tf32(False):
+        tr = Trainer(FSDP_F32_CONFIG, device="cuda", seed=0,
+                     steps_per_epoch=100)
+        tr.model.KSVQE_head.dropout_ratio = 0.0
+        one_aux = tr.train_step(_fsdp_batches()[0])
+    one_grads = {n: p.grad.float().cpu() for n, p in
+                 tr.model.named_parameters() if p.grad is not None}
+    del tr
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("fsdp", root, FSDP_RANKS)
+    r0 = ranks[0]
+
+    def grads(name):
+        return torch.load(os.path.join(root, f"fsdp.{name}.grads.pt"))
+
+    agree = {
+        "f32": grad_agreement(
+            "(data, fsdp) step (4 gloo ranks) vs the one-process step, "
+            "f32, plain path", grads("f32"), one_grads, r0["aux_f32"],
+            one_aux, "KSVQE_backbone.layers."),
+        "bf16": grad_gaps(
+            "(data, fsdp) step (4 gloo ranks), bf16, kernel path vs plain "
+            "path (each gradient reported)", grads("kernel"),
+            grads("plain"), r0["aux"], r0["aux_plain"],
+            "KSVQE_backbone.layers.")}
+    del one_grads
+    # In bf16 the loss and all gradients together are held; each gradient
+    # is not: the PLCC over four scores 0.04 apart turns the bf16 rounding
+    # of the scores into a gap of ~0.1 in every Swin gradient alike, on
+    # either path (PERF.md §6).  K4 and K5 are held gradient by gradient at
+    # this step's one row a rank in train_kernel_phase(batch=1).
+    bf16 = agree["bf16"]
+    if not (math.isfinite(r0["aux"]["total_loss"])
+            and bf16["loss_abs_diff"] <= bf16["loss_tol"]
+            and bf16["grad_rel_all"] <= TRAIN_GRAD_TOL):
+        fail(f"(data, fsdp) bf16 step, kernel path vs plain path: loss "
+             f"|d| {bf16['loss_abs_diff']}, all gradients "
+             f"{bf16['grad_rel_all']}")
+    steps = TRAIN_STEPS
+    for r, res in enumerate(ranks):
+        want = {k: v * steps for k, v in FSDP_STEP_LAUNCHES.items()}
+        if (res["first_step"] != FSDP_STEP_LAUNCHES or res["timed"] != want
+                or res["eval"] != FSDP_EVAL_LAUNCHES
+                or any(c != NO_LAUNCHES
+                       for c in res["plain_counts"].values())):
+            fail(f"(data, fsdp) rank {r}: launches {res['first_step']}, "
+                 f"{res['timed']} over {steps} steps, eval {res['eval']}, "
+                 f"plain path {res['plain_counts']}")
+        if not res["params_equal_rank0"] or any(
+                res[k] != r0[k] for k in ("aux", "aux_f32", "aux_plain")):
+            fail(f"(data, fsdp) rank {r}: parameters or loss differ from "
+                 f"rank 0's")
+        b = res["state_bytes"]
+        if b["sharded"] * 2 != b["sharded_replicated"]:
+            fail(f"(data, fsdp) rank {r}: sharded state {b}")
+    index, scores, _ = r0["eval_rows"]
+    one = r0["one_process"]
+    gap = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(scores, one))
+    if index != list(range(FSDP_RANKS)) or not gap <= SCORE_TOL:
+        fail(f"(data, fsdp) eval: rows {index}, scores {scores} vs one "
+             f"process {one}")
+    print(f"(data, fsdp) sharded step, KSVQE at full width on "
+          f"{FSDP_RANKS} gloo ranks (data 2 x fsdp 2, one row a rank, bf16):"
+          f" {r0['steps_per_s']:.3f} steps/s (rank 0; ranks "
+          f"{[round(r['steps_per_s'], 3) for r in ranks]}) over {steps} "
+          f"steps; the collectives alone (CUDA events, rank 0): all-gather "
+          f"of the trainable shards {r0['gather_ms']:.2f} ms, the gradient "
+          f"all-reduce {r0['reduce_ms']:.2f} ms; peak memory a rank "
+          f"{[round(r['peak_memory_bytes'] / 2 ** 30, 3) for r in ranks]} "
+          f"GiB; f32 masters, moments and EMA a rank: sharded parameters "
+          f"{r0['state_bytes']['sharded'] / 2 ** 20:.1f} MiB against "
+          f"{r0['state_bytes']['sharded_replicated'] / 2 ** 20:.1f} "
+          f"replicated (the DDP route), all parameters "
+          f"{r0['state_bytes']['total'] / 2 ** 20:.1f} against "
+          f"{r0['state_bytes']['total_replicated'] / 2 ** 20:.1f} MiB; "
+          f"launches a step a rank {FSDP_STEP_LAUNCHES['train_swin_block']}"
+          f" + {FSDP_STEP_LAUNCHES['train_swin_block_bwd']} K4, "
+          f"{FSDP_STEP_LAUNCHES['window_attention_train']} + "
+          f"{FSDP_STEP_LAUNCHES['window_attention_train_bwd']} K5; eval "
+          f"12 K1 + 9 K2 a rank, gathered scores {scores} vs one process "
+          f"{one} (max rel gap {gap:.3g}, tol {SCORE_TOL}); the ranks' "
+          f"parameters bit-equal; setup and first step "
+          f"{r0['setup_s']:.1f} s; last losses {r0['last']}; dry run "
+          f"{json.dumps(r0['dryrun'])}; {card}",
+          flush=True)
+    dropout = swin2d_dropout_check(card)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"(data, fsdp) phase: {time.time() - t_phase:.1f} s", flush=True)
+    return {"agreement": agree, "ranks": ranks, "swin2d_dropout": dropout,
+            "launches_rank0": {k: r0["timed"][k] + r0["eval"][k]
+                               for k in r0["timed"]},
+            "phase_s": time.time() - t_phase}
+
+
 def rank_worker(argv) -> int:
-    """One rank of a two-rank phase: ``JOB RANK WORLD RENDEZVOUS ROOT``.
+    """One rank of a multi-rank phase: ``JOB RANK WORLD RENDEZVOUS ROOT``.
     Joins the gloo group on cuda:0, runs the job, writes
     ``ROOT/JOB.rank{RANK}.json``."""
     import torch
@@ -3346,8 +3720,8 @@ def rank_worker(argv) -> int:
     os.environ.update(RANK=rank, WORLD_SIZE=world, LOCAL_RANK=rank)
     init_distributed("cuda:0", backend="gloo", init_method=f"file://{rdv}")
     try:
-        out = {"svqa_train": _rank_svqa_train,
-               "cli_test": _rank_cli_test}[job](int(rank), root)
+        out = {"svqa_train": _rank_svqa_train, "cli_test": _rank_cli_test,
+               "fsdp": _rank_fsdp}[job](int(rank), root)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(root, f"{job}.rank{rank}.json"), "w") as f:
@@ -3934,6 +4308,7 @@ def main() -> int:
 
     k1, k2 = kernel_phase(card)
     k4f, k4b, k5f_ksvqe, k5b_ksvqe = train_kernel_phase(card)
+    b1 = train_kernel_phase(card, batch=1)  # the (data, fsdp) step's rows
     k5f, k5b = swin_train_kernel_phase(card)
     for agg, other in ((k5f, k5f_ksvqe), (k5b, k5b_ksvqe)):
         agg["err"] = max(agg["err"], other["err"])
@@ -3956,6 +4331,7 @@ def main() -> int:
     ddp_cli = cli_ddp_path(card, files)
     ddp_torchrun = torchrun_path(card, files)
     shutil.rmtree(files["root"])
+    sharded = fsdp_path(card)
     dover = dover_path(card)
     swin2d = swin2d_path(card)
     clip_full = clip_full_path(card)
@@ -4038,23 +4414,30 @@ def main() -> int:
     for rec in kernels:  # data-parallel runs: (a)'s steps, (c)'s two ranks
         rec["launches_data_parallel"] = (ddp_nccl["launches"][rec["name"]]
                                          + ddp_cli["launches"][rec["name"]])
+        # the (data, fsdp) phase, rank 0: its timed steps and eval forward
+        rec["launches_fsdp_rank0"] = sharded["launches_rank0"][rec["name"]]
 
-    def at_n49(agg, per):
-        """A kernel's times at swin_2d_tiny's geometries (N = 49)."""
+    def at_shapes(agg, per):
+        """A kernel's times and error at other shapes than its record's."""
         tb, tf = agg["bound"]
         return {"ms": agg["ms"], "plain_ms": agg["plain_ms"],
                 "bound_ms": max(tb, tf),
                 "bound_by": "bytes" if tb >= tf else "operations",
                 "max_abs_err": agg["err"], "per": per}
 
-    n49 = {"fused_swin_block": at_n49(
+    n49 = {"fused_swin_block": at_shapes(
         k1_49, "the calls of one swin_2d_tiny forward (B=1, T=8, 224 px)"),
-        "train_swin_block": at_n49(
+        "train_swin_block": at_shapes(
         k4f_49, "the calls of one swin_2d_tiny train step (B=4, T=8, "
                 "224 px)"),
-        "train_swin_block_bwd": at_n49(
+        "train_swin_block_bwd": at_shapes(
         k4b_49, "the calls of one swin_2d_tiny train step (B=4, T=8, "
                 "224 px)")}
+    per_b1 = "the calls of a rank's (data, fsdp) step (B=1, T=32)"
+    b1_recs = dict(zip(("train_swin_block", "train_swin_block_bwd",
+                        "window_attention_train",
+                        "window_attention_train_bwd"),
+                       (at_shapes(a, per_b1) for a in b1)))
     paths = {"fused_swin_block": {
         "KSVQE eval": run["launches"]["fused_swin_block"],
         "swin_tiny,conv_tiny eval": dover["launches"]["fused_swin_block"],
@@ -4068,6 +4451,8 @@ def main() -> int:
         if rec["name"] in n49:
             rec["at_n49"] = n49[rec["name"]]
             rec["launches_by_path"] = paths[rec["name"]]
+        if rec["name"] in b1_recs:
+            rec["at_b1"] = b1_recs[rec["name"]]
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "k1_rows": k1["rows"], "k2_rows": k2["rows"],
                    "k4_fwd_rows": k4f["rows"], "k4_bwd_rows": k4b["rows"],
@@ -4087,8 +4472,11 @@ def main() -> int:
                    "simplevqa_files": svqa_files,
                    "ddp_nccl": ddp_nccl, "ddp_simplevqa": ddp_svqa,
                    "ddp_cli_test": ddp_cli, "ddp_torchrun": ddp_torchrun,
+                   "fsdp": sharded,
                    "k1_n49_rows": k1_49["rows"],
                    "k4_fwd_n49_rows": k4f_49["rows"],
+                   "b1_rows": {k: a["rows"] for k, a in zip(
+                       ("k4_fwd", "k4_bwd", "k5_fwd", "k5_bwd"), b1)},
                    "k4_bwd_n49_rows": k4b_49["rows"],
                    "two_branch": dover, "swin_2d_tiny": swin2d,
                    "clip_full": clip_full, "kernels": kernels}, f,

@@ -26,7 +26,9 @@ whose report ``load_weights`` prints as ``kvq_tpu.core.checkpoint.
 merge_params`` does.  Each layout change is elementwise-safe (transpose,
 reshape), so an optimizer moment tree (optax's ``mu``/``nu``, shaped like
 ``params``) maps the same way; :func:`adamw_state_from_jax` does that for
-the JAX trainer's optax state.
+the JAX trainer's optax state.  :func:`jax_axes` gives, for a parameter of
+a port module, where each axis of its JAX array lies in the port's tensor
+(the layouts above, read from the module that holds it).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _np(a) -> np.ndarray:
@@ -88,8 +91,10 @@ class _Out:
         if isinstance(value, _Tree):
             return
         a = _np(value)
+        a = layout(a) if layout else a
+        # ascontiguousarray makes a 0-d array 1-d; the reshape keeps ()
         self.sd[name] = torch.from_numpy(
-            np.ascontiguousarray(layout(a) if layout else a))
+            np.ascontiguousarray(a).reshape(a.shape))
 
     def dense(self, name: str, p, bias: bool = True) -> None:
         self.put(f"{name}.weight", p["kernel"], np.transpose)
@@ -489,3 +494,22 @@ def adamw_state_from_jax(opt_state: Mapping, frozen: bool, scaled: bool
         raise ValueError(f"opt_state: moments that map to no parameter: "
                          f"{(unread_mu + unread_nu)[:5]}")
     return count, mu, nu
+
+
+def jax_axes(module: nn.Module, name: str) -> tuple[int, ...]:
+    """The port axis of each axis of the JAX array behind ``module``'s
+    parameter ``name``: JAX's shape is ``tuple(port_shape[a] for a in
+    jax_axes(...))``.  A Linear weight and an ``in_proj_weight`` are JAX's
+    (in, out) kernel transposed; a conv weight (O, I, *k) is JAX's (*k, I,
+    O) kernel, also where JAX holds a 1x1(x1) conv as a Dense (in, out):
+    the axes of size 1 aside, the order is the same.  Every other
+    parameter has JAX's layout."""
+    owner, _, leaf = name.rpartition(".")
+    sub = module.get_submodule(owner) if owner else module
+    ndim = getattr(sub, leaf).dim()
+    if leaf == "in_proj_weight" or (
+            leaf == "weight" and isinstance(sub, nn.Linear)):
+        return (1, 0)
+    if leaf == "weight" and isinstance(sub, nn.modules.conv._ConvNd):
+        return tuple(range(2, ndim)) + (1, 0)
+    return tuple(range(ndim))

@@ -7,8 +7,9 @@ unknown ``data.<split>.type`` names the registered ones: ``KVQDataset``,
 ``SimpleVQADataset`` and ``GenericViewDataset``, and their reference names
 ``ViewDecompositionDataset_KVQ``,
 ``ViewDecompositionDataset_add_forSimpleVQA`` and
-``ViewDecompositionDataset`` (data/datasets.py).  The port's model keys are
-resolved by ``models/vqa_network.py``.
+``ViewDecompositionDataset`` (data/datasets.py), and the seven legacy
+DOVER/FastVQA classes of data/legacy_datasets.py.  The port's model keys
+are resolved by ``models/vqa_network.py``.
 """
 
 from __future__ import annotations

@@ -307,6 +307,9 @@ DATASETS.register("ViewDecompositionDataset_KVQ")(KVQDataset)
 DATASETS.register("ViewDecompositionDataset_add_forSimpleVQA")(SimpleVQADataset)
 DATASETS.register("ViewDecompositionDataset")(GenericViewDataset)
 
+# registers the legacy DOVER/FastVQA classes
+from . import legacy_datasets  # noqa: E402,F401
+
 
 def make_synthetic_opt(
     n_videos: int = 4,

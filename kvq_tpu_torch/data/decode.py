@@ -1,5 +1,5 @@
 """Video sources and the unique-frame decode of the sampled views (copy of
-kvq_tpu/data/decode.py:27-290).
+kvq_tpu/data/decode.py:27-320).
 
   - :class:`SyntheticVideoSource`: procedural frames from a per-(video,
     frame) seed, bit-equal to the JAX package's in both modes;
@@ -12,7 +12,8 @@ kvq_tpu/data/decode.py:27-290).
     links OpenCV's C++ videoio and is not ported (the port's runtime/
     makes the views, not the frames);
   - :func:`decode_views`: sample each view's frame indices and decode each
-    unique frame once.
+    unique frame once;
+  - :func:`decode_views_ms`: the multi-scale views of those frames.
 """
 
 from __future__ import annotations
@@ -288,3 +289,33 @@ def decode_views(
         k: np.stack([lookup[int(i)] for i in inds]) for k, inds in frame_inds.items()
     }
     return videos, frame_inds
+
+
+def decode_views_ms(
+    source: VideoSource,
+    sample_types: Mapping[str, dict],
+    samplers: Mapping[str, object],
+    is_train: bool = False,
+    rng: "np.random.Generator | None" = None,
+) -> tuple[dict[str, dict], dict[str, np.ndarray]]:
+    """Multi-scale view decomposition (reference
+    spatial_temporal_view_decomposition_ms, fusion_datasets.py:527-604;
+    no shipped config uses it).
+
+    For each sample type returns ``{'scale1': <configured fsize view>,
+    'scale2': <64x64-fragment view>, 'res': min(H, W)}``.
+    """
+    from .views import get_single_view
+
+    videos, frame_inds = decode_views(source, samplers, is_train)
+    sampled: dict[str, dict] = {}
+    for stype, sopt in sample_types.items():
+        video = videos[stype]
+        sopt2 = dict(sopt)
+        sopt2.update(fsize_h=64, fsize_w=64)
+        sampled[stype] = {
+            "scale1": get_single_view(video, stype, rng=rng, **sopt),
+            "scale2": get_single_view(video, stype, rng=rng, **sopt2),
+            "res": int(min(video.shape[1], video.shape[2])),
+        }
+    return sampled, frame_inds

@@ -172,8 +172,10 @@ def f32_names(model: nn.Module) -> set:
     return names
 
 
-def _compute_dtype_of(name: str, t: torch.Tensor, dtype: torch.dtype,
-                      keep: set):
+def tensor_compute_dtype(name: str, t: torch.Tensor, dtype: torch.dtype,
+                         keep: set) -> torch.dtype:
+    """The dtype of the tensor ``name`` in a forward of compute dtype
+    ``dtype``: its own when it is not floating point or is in ``keep``."""
     if not t.is_floating_point() or name in keep:
         return t.dtype
     return dtype
@@ -192,10 +194,10 @@ def compute_tensors(model: nn.Module, dtype: torch.dtype,
     out = {}
     for name, p in model.named_parameters():
         if p.requires_grad or not trainable_only:
-            out[name] = p.to(_compute_dtype_of(name, p, dtype, keep))
+            out[name] = p.to(tensor_compute_dtype(name, p, dtype, keep))
     if not trainable_only:
         for name, b in model.named_buffers():
-            out[name] = b.to(_compute_dtype_of(name, b, dtype, keep))
+            out[name] = b.to(tensor_compute_dtype(name, b, dtype, keep))
     return out
 
 

@@ -31,16 +31,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import conv1x1, dropout
+from .layers import conv1x1, maybe_dropout
 
 
 class _Dropout(nn.Module):
     """The heads' dropouts: rate ``dropout_ratio``, in training only."""
 
     def _drop(self, x, gen):
-        if not self.training or self.dropout_ratio == 0.0:
-            return x
-        return dropout(x, self.dropout_ratio, gen)
+        return maybe_dropout(x, self.dropout_ratio, self.training, gen)
 
 
 class VQAHead(_Dropout):

@@ -13,6 +13,13 @@ kvq_tpu/nn/ksvqe.py; reference KSVQE_model.py:1024-1506).
   (e) the supervised contrastive distortion loss, returned beside the
       features.
 
+Under the (data, fsdp) layout (parallel/fsdp.py) the contrastive loss
+spans the whole batch, as JAX's jitted step computes it: with
+``contrastive_group`` set, every rank's distortion tokens and labels are
+gathered before it (``parallel/steps.py:gather_batch``, whose backward
+keeps this rank's slice); without one (the default) it is this forward's
+own rows'.
+
 A training forward (``model.train()``) draws, from the one generator it is
 given and in this order: the QRS noise, then each Swin block's two DropPath
 masks.  The distortion tool sees the selected frames detached, and CONTRIQUE
@@ -27,6 +34,7 @@ import torch
 from torch import nn
 
 from ..core.device import index_tensor
+from ..parallel.steps import gather_batch
 from ..train.losses import distortion_contrastive_supervised
 from .cdm import AdapterMLP, CrossAttention, DistFiLM, SemanticFiLM, TemporalAttention
 from .clip_vit import CLIPVisionTower
@@ -108,6 +116,8 @@ def ksvqe_config(bb: dict | None) -> KSVQEConfig:
 
 
 class KSVQE(nn.Module):
+    contrastive_group = None  # the ranks whose rows the loss spans
+
     def __init__(self, config: KSVQEConfig):
         super().__init__()
         cfg = self.config = config
@@ -231,7 +241,12 @@ class KSVQE(nn.Module):
             dist_in = x_sel.detach()[:, ::2]
         dist_tok = self.distortion_tool(dist_in)  # (B, T/2, G, 128) f32
         dist_tok = 0.2 * self.dist_adapter(dist_tok) + 0.8 * dist_tok
-        dis_loss = distortion_contrastive_supervised(dist_tok, dis_label)
+        if self.contrastive_group is None:
+            dis_loss = distortion_contrastive_supervised(dist_tok, dis_label)
+        else:
+            dis_loss = distortion_contrastive_supervised(
+                gather_batch(dist_tok.float(), self.contrastive_group),
+                gather_batch(dis_label, self.contrastive_group))
 
         ts = cfg.tuning_stage
         for l, stage in enumerate(self.layers):

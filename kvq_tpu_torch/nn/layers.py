@@ -54,15 +54,19 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (reference swin_backbone.py:64-91)."""
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout (reference
+    swin_backbone.py:64-91); the dropouts (rate ``drop``) in training
+    only, drawn from ``gen``."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.drop = drop
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, gen=None):
+        x = maybe_dropout(F.gelu(self.fc1(x)), self.drop, self.training, gen)
+        return maybe_dropout(self.fc2(x), self.drop, self.training, gen)
 
 
 def keep_multipliers(shape, rate: float, gen, device) -> torch.Tensor:
@@ -83,6 +87,13 @@ def dropout(x, rate: float, gen):
     0."""
     mult = keep_multipliers(x.shape, rate, gen, x.device)
     return (x.float() * mult).to(x.dtype)
+
+
+def maybe_dropout(x, rate: float, training: bool, gen):
+    """:func:`dropout` in training at a rate above 0, else ``x``."""
+    if not training or rate == 0.0:
+        return x
+    return dropout(x, rate, gen)
 
 
 class DropPath(nn.Module):

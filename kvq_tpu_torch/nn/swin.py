@@ -53,7 +53,15 @@ from ..ops.window_attention import (
     gate_and_mask,
     window_attention_plain,
 )
-from .layers import DropPath, LayerNorm, Mlp, PatchEmbed3D, PatchMerging
+from .layers import (
+    DropPath,
+    LayerNorm,
+    Mlp,
+    PatchEmbed3D,
+    PatchMerging,
+    dropout,
+    maybe_dropout,
+)
 from .reference_routing import takes_fused_block
 
 
@@ -128,12 +136,16 @@ def _table_len(window):
 class WindowAttention3D(nn.Module):
     """W-MSA over flattened windows with dual position-bias tables: the
     plain (XLA-composition) path, or, given the padded window geometry, K3
-    at eval and K5 in training."""
+    at eval and K5 in training.  In training the plain path drops attention
+    weights at ``attn_drop`` and the output drops at ``proj_drop``, drawn
+    from the forward's generator."""
 
     def __init__(self, dim, num_heads, table_window, frag_bias=False,
-                 qkv_bias=True):
+                 qkv_bias=True, attn_drop=0.0, proj_drop=0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.table_window = tuple(table_window)
         self.frag_bias = frag_bias
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
@@ -154,9 +166,10 @@ class WindowAttention3D(nn.Module):
                                       self.table_window, n)
         return rel, frag
 
-    def forward(self, x, mask=None, fgate=None, geometry=None):
+    def forward(self, x, mask=None, fgate=None, geometry=None, gen=None):
         # x: (B, nW, N, C); mask/fgate: (nW, N, N) or None; geometry: the
-        # padded window geometry, given for K3 (eval) or K5 (training)
+        # padded window geometry, given for K3 (eval) or K5 (training, no
+        # attention dropout)
         B, nW, N, C = x.shape
         h = self.num_heads
         hd = C // h
@@ -172,19 +185,28 @@ class WindowAttention3D(nn.Module):
             out = window_attention_train(q, k, v, rel, frag, geometry,
                                          hd ** -0.5).view(B, nW, h, N, hd)
         else:
+            drop = None
+            if self.training and self.attn_drop > 0.0:
+                def drop(p):
+                    return dropout(p, self.attn_drop, gen)
             out = window_attention_plain(qkv[0], qkv[1], qkv[2], rel, frag,
-                                         fgate, mask, hd ** -0.5)
+                                         fgate, mask, hd ** -0.5, drop)
         out = out.transpose(2, 3).reshape(B, nW, N, C).to(x.dtype)
-        return self.proj(out)
+        return maybe_dropout(self.proj(out), self.proj_drop, self.training,
+                             gen)
 
 
 class SwinBlock3D(nn.Module):
     """One (S)W-MSA + MLP block (reference SwinTransformerBlock3D,
-    swin_backbone.py:329-520)."""
+    swin_backbone.py:329-520).  ``drop`` (the attention output's and the
+    MLP's dropout) and ``attn_drop`` (the attention weights') act in
+    training; with ``jump_attention`` the block has no attention half (nor
+    its parameters, as in kvq_tpu) and runs its MLP half alone."""
 
     def __init__(self, dim, num_heads, window_size, shift, mlp_ratio=4.0,
                  qkv_bias=True, drop_path=0.0, frag_bias=False,
-                 fragments_hw=7, use_pallas=False):
+                 fragments_hw=7, use_pallas=False, drop=0.0, attn_drop=0.0,
+                 jump_attention=False):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = tuple(window_size)
@@ -192,12 +214,20 @@ class SwinBlock3D(nn.Module):
         self.frag_bias = frag_bias
         self.fragments_hw = fragments_hw
         self.use_pallas = use_pallas
-        self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention3D(dim, num_heads, window_size,
-                                      frag_bias=frag_bias, qkv_bias=qkv_bias)
+        self.drop, self.attn_drop = drop, attn_drop
+        self.jump_attention = jump_attention
+        if not jump_attention:
+            self.norm1 = LayerNorm(dim)
+            self.attn = WindowAttention3D(
+                dim, num_heads, window_size, frag_bias=frag_bias,
+                qkv_bias=qkv_bias, attn_drop=attn_drop, proj_drop=drop)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop)
+
+    def draws_dropout(self) -> bool:
+        """Whether a training forward of the block draws dropout masks."""
+        return self.training and (self.drop > 0.0 or self.attn_drop > 0.0)
 
     def _geometry(self, B, dims, window, shift, C):
         return WindowGeometry(
@@ -255,11 +285,14 @@ class SwinBlock3D(nn.Module):
                 self.drop_path.multipliers(batch, gen, device))
 
     def forward(self, x, gen=None, dp=None):
-        """``gen``: the torch.Generator of a training forward's DropPath
-        draws (two per block, attention branch first, on every route); or
-        ``dp``, the two multiplier sets drawn already
-        (:meth:`drop_path_multipliers`), as a rematerialised block takes
-        them."""
+        """``gen``: the torch.Generator of a training forward's draws: the
+        block's two DropPath multiplier sets (attention branch first, on
+        every route), unless ``dp`` holds them already
+        (:meth:`drop_path_multipliers`, as a rematerialised block takes
+        them), then its dropout masks in forward order.  The routes follow
+        kvq_tpu/nn/swin.py:611-660: ``jump_attention`` declines K1 and K4,
+        a training forward with dropout declines K4, and one with attention
+        dropout declines K5 too (the plain attention drops its weights)."""
         B, D, H, W, C = x.shape
         cfg_shift = (tuple(w // 2 for w in self.window_size) if self.shift
                      else (0, 0, 0))
@@ -267,16 +300,19 @@ class SwinBlock3D(nn.Module):
         no_pad = all(d % w == 0 for d, w in zip((D, H, W), window))
         dp1, dp2 = (self.drop_path_multipliers(B, gen, x.device) if dp is None
                     else dp)
-        if self.use_pallas and no_pad:
+        if (self.use_pallas and no_pad and not self.jump_attention
+                and not self.draws_dropout()):
             # the gate is decided on the unpadded dims, as the reference's
             probe = self._geometry(B, (D, H, W), window, shift, C)
             if takes_fused_block(probe, C, self.mlp.fc1.out_features,
                                  self.training):
                 return self._fused_block(x, window, shift, dp1, dp2)
-        x = x + self.drop_path(self._attention(x, window, shift), dp1)
-        return x + self.drop_path(self.mlp(self.norm2(x)), dp2)
+        if not self.jump_attention:
+            x = x + self.drop_path(self._attention(x, window, shift, gen),
+                                   dp1)
+        return x + self.drop_path(self.mlp(self.norm2(x), gen), dp2)
 
-    def _attention(self, x, window, shift):
+    def _attention(self, x, window, shift, gen=None):
         """The attention branch: norm1, zero padding to whole windows (the
         padded tokens are not masked), roll, partition, and W-MSA at the
         padded geometry — K3 at eval and K5 in training with
@@ -291,11 +327,11 @@ class SwinBlock3D(nn.Module):
             y = torch.roll(y, shifts=tuple(-s for s in shift), dims=(1, 2, 3))
         geo = self._geometry(B, (Dp, Hp, Wp), window, shift, C)
         y = window_partition(y, window)
-        if self.use_pallas:
-            y = self.attn(y, geometry=geo)
+        if self.use_pallas and not (self.training and self.attn_drop > 0.0):
+            y = self.attn(y, geometry=geo, gen=gen)
         else:
             gate, mask = gate_and_mask(geo, x.device)
-            y = self.attn(y, mask, gate if self.frag_bias else None)
+            y = self.attn(y, mask, gate if self.frag_bias else None, gen=gen)
         y = window_reverse(y, window, B, Dp, Hp, Wp)
         if any(shift):
             y = torch.roll(y, shifts=tuple(shift), dims=(1, 2, 3))
@@ -321,14 +357,16 @@ class BasicLayer(nn.Module):
     def __init__(self, dim, depth, num_heads, window_size, mlp_ratio=4.0,
                  qkv_bias=True, drop_paths=(), downsample=True,
                  frag_bias=False, fragments_hw=7, use_pallas=False,
-                 use_checkpoint=False):
+                 use_checkpoint=False, drop=0.0, attn_drop=0.0,
+                 jump_attention=False):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinBlock3D(dim, num_heads, window_size, shift=i % 2 == 1,
                         mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                         drop_path=drop_paths[i] if drop_paths else 0.0,
                         frag_bias=frag_bias, fragments_hw=fragments_hw,
-                        use_pallas=use_pallas)
+                        use_pallas=use_pallas, drop=drop,
+                        attn_drop=attn_drop, jump_attention=jump_attention)
             for i in range(depth)
         ])
         self.downsample = PatchMerging(dim) if downsample else None
@@ -339,32 +377,51 @@ class BasicLayer(nn.Module):
                  and torch.is_grad_enabled())
         for blk in self.blocks:
             dp = blk.drop_path_multipliers(x.shape[0], gen, x.device)
-            x = _rematerialised(blk, x, dp) if remat else blk(x, dp=dp)
+            x = (_rematerialised(blk, x, dp, gen) if remat
+                 else blk(x, gen, dp=dp))
         if self.downsample is not None:
             x = self.downsample(x)
         return x
 
 
-def _rematerialised(blk, x, dp):
+def _rematerialised(blk, x, dp, gen):
     """``blk(x, dp=dp)`` under non-reentrant ``torch.utils.checkpoint``,
-    with the block's parameters as inputs of the checkpointed function."""
+    with the block's parameters as inputs of the checkpointed function.  A
+    block that draws dropout masks draws them from a copy of ``gen``'s
+    state, the same in the forward and in the recompute, and ``gen`` then
+    moves on past the forward's draws."""
     names, tensors = zip(*blk.named_parameters())
+    state = gen.get_state() if blk.draws_dropout() else None
+    after = []
 
     def run(x, *tensors):
-        return functional_call(blk, dict(zip(names, tensors)), (x,),
-                               {"dp": dp})
+        g = None
+        if state is not None:
+            g = torch.Generator(device=gen.device)
+            g.set_state(state)
+        out = functional_call(blk, dict(zip(names, tensors)), (x,),
+                              {"gen": g, "dp": dp})
+        if g is not None and not after:
+            after.append(g.get_state())
+        return out
 
-    return checkpoint(run, x, *tensors, use_reentrant=False,
-                      preserve_rng_state=False)
+    out = checkpoint(run, x, *tensors, use_reentrant=False,
+                     preserve_rng_state=False)
+    if after:
+        gen.set_state(after[0])
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
 class SwinConfig:
-    """kvq_tpu's SwinConfig without the options that no preset and no
-    ``backbone`` override sets (``drop_rate``, ``attn_drop_rate``,
-    ``jump_attention``, ``input_key``; nor does :func:`swin_2d_tiny` take
-    them): the trunk reads the technical view.  ``use_checkpoint`` (remat, on by default as in JAX) changes no
-    result, only what a training forward keeps for its backward."""
+    """kvq_tpu's SwinConfig (kvq_tpu/nn/swin.py:765-781).  No preset and no
+    ``backbone`` override sets ``drop_rate`` (the patch embed's, each
+    attention output's and MLP's dropout), ``attn_drop_rate`` (the
+    attention weights'), ``jump_attention`` (per stage: blocks without
+    their attention half) or ``input_key`` (the batch key the trunk
+    reads); :func:`swin_2d_tiny` takes them.  ``use_checkpoint`` (remat, on
+    by default as in JAX) changes no result, only what a training forward
+    keeps for its backward."""
 
     patch_size: tuple[int, int, int] = (2, 4, 4)
     embed_dim: int = 96
@@ -373,11 +430,15 @@ class SwinConfig:
     window_size: tuple[int, int, int] = (8, 7, 7)
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.1
     frag_biases: tuple[bool, ...] = (True, True, True, False)
+    jump_attention: tuple[bool, ...] = (False, False, False, False)
     fragments_hw: int = 7
     use_checkpoint: bool = True
     use_pallas: bool = False
+    input_key: str = "technical"
 
 
 _PRESETS = {  # reference models/model.py:30-47
@@ -441,12 +502,16 @@ def make_stages(cfg: SwinConfig) -> nn.ModuleList:
             fragments_hw=cfg.fragments_hw,
             use_pallas=cfg.use_pallas,
             use_checkpoint=cfg.use_checkpoint,
+            drop=cfg.drop_rate,
+            attn_drop=cfg.attn_drop_rate,
+            jump_attention=bool(cfg.jump_attention[i]),
         ))
     return nn.ModuleList(stages)
 
 
 class SwinTransformer3D(nn.Module):
-    """Patch embed + stages + final LayerNorm over ``batch["technical"]``
+    """Patch embed (its dropout at ``drop_rate`` in training) + stages +
+    final LayerNorm over ``batch[config.input_key]``
     (counterpart of kvq_tpu/nn/swin.py SwinTransformer3D; reference
     swin_backbone.py:1044-1080).  Parameter names are the reference's
     (``patch_embed.*``, ``layers.{i}.blocks.{b}.*``,
@@ -464,9 +529,11 @@ class SwinTransformer3D(nn.Module):
 
     def forward(self, batch, gen=None):
         """``gen``: the torch.Generator of a training forward's DropPath
-        draws."""
-        x = batch["technical"] if isinstance(batch, dict) else batch
+        and dropout draws."""
+        cfg = self.config
+        x = batch[cfg.input_key] if isinstance(batch, dict) else batch
         x = self.patch_embed(x.to(self.patch_embed.proj.weight.dtype))
+        x = maybe_dropout(x, cfg.drop_rate, self.training, gen)
         for stage in self.layers:
             x = stage(x, gen)
         return self.norm(x)

@@ -117,10 +117,13 @@ def gate_and_mask(geo: WindowGeometry, device):
     return gate, mask
 
 
-def window_attention_plain(q, k, v, rel_bias, frag_bias, gate, mask, scale):
+def window_attention_plain(q, k, v, rel_bias, frag_bias, gate, mask, scale,
+                           dropout=None):
     """XLA composition of window attention (nn/swin.py WindowAttention3D).
     q/k/v: (B, nW, h, N, hd); rel/frag: (h, N, N) f32; gate/mask:
-    (nW, N, N) or None.  Returns (B, nW, h, N, hd) in float32."""
+    (nW, N, N) or None; ``dropout``: applied to the float32 attention
+    weights (a training forward's).  Returns (B, nW, h, N, hd) in
+    float32."""
     attn = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     if frag_bias is not None and gate is not None:
         g = gate[:, None]
@@ -130,8 +133,10 @@ def window_attention_plain(q, k, v, rel_bias, frag_bias, gate, mask, scale):
     attn = attn + bias
     if mask is not None:
         attn = attn + mask[:, None]
-    p = attn.softmax(dim=-1).to(v.dtype)
-    return torch.matmul(p.float(), v.float())
+    p = attn.softmax(dim=-1)
+    if dropout is not None:
+        p = dropout(p)
+    return torch.matmul(p.to(v.dtype).float(), v.float())
 
 
 def _windows(t, geo):

@@ -2,14 +2,18 @@
 kvq_tpu/parallel/mesh.py:25-42).
 
 The JAX package lays its devices out in a mesh whose ``data`` axis carries
-the batch; here each process drives one device and the ``data`` axis is
-the default process group of ``torch.distributed``: its rank is the
-shard's index (JAX's ``axis_index("data")``), its size the axis size.
+the batch; here each process drives one device.  In the DDP flavour the
+``data`` axis is the default process group of ``torch.distributed``: its
+rank is the shard's index (JAX's ``axis_index("data")``), its size the
+axis size.  :func:`make_mesh` lays the ranks out as JAX's
+``make_mesh(data, fsdp)`` lays out its devices, rank ``r`` at ``(r //
+fsdp, r % fsdp)``, and makes the process groups of both axes.
 :func:`init_distributed` is the ``jax.distributed.initialize`` analog.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
@@ -60,6 +64,43 @@ def init_distributed(device="cuda", backend: str | None = None,
         world_size=int(os.environ["WORLD_SIZE"]),
         device_id=dev if backend == "nccl" else None)
     return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The (data, fsdp) layout of the default group: ``shape`` by axis
+    name (JAX's ``mesh.shape``), this rank's index on each axis, and this
+    rank's process group along each axis: ``groups["fsdp"]`` holds the
+    ``fsdp`` consecutive ranks of its data row, ``groups["data"]`` the
+    ranks ``fsdp`` apart that share its fsdp index."""
+
+    shape: dict
+    index: dict
+    groups: dict
+
+
+def make_mesh(data: int | None = None, fsdp: int = 1) -> Mesh:
+    """The (data, fsdp) mesh over the ranks of the default group (one
+    device each): ``data`` defaults to ``world // fsdp``.  Every rank must
+    call it, in the same order as its other group calls: each makes every
+    subgroup, as ``torch.distributed.new_group`` requires."""
+    n = world()
+    if data is None:
+        data = n // fsdp
+    if data * fsdp != n:
+        raise ValueError(f"mesh {data}x{fsdp} != {n} ranks")
+    r = rank()
+    groups = {}
+    for d in range(data):  # the fsdp groups: consecutive ranks
+        g = dist.new_group([d * fsdp + f for f in range(fsdp)])
+        if d == r // fsdp:
+            groups["fsdp"] = g
+    for f in range(fsdp):  # the data groups: ranks fsdp apart
+        g = dist.new_group([d * fsdp + f for d in range(data)])
+        if f == r % fsdp:
+            groups["data"] = g
+    return Mesh(shape={"data": data, "fsdp": fsdp},
+                index={"data": r // fsdp, "fsdp": r % fsdp}, groups=groups)
 
 
 def launch(device="cuda") -> torch.device:

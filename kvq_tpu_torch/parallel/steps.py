@@ -18,6 +18,17 @@ and gradients with autograd, and these functions make it the same step:
   - :func:`gather_rows`: every rank's eval rows, deduped by dataset index
     (kvq_tpu/train/trainer.py:571-601).
 
+The (data, fsdp) flavour (``parallel/fsdp.py``) computes one global loss
+on every rank, and uses two more:
+
+  - :func:`gather_batch`: every rank's rows of a tensor, in rank order,
+    differentiable; its backward keeps this rank's slice of the cotangent,
+    so that the ranks' parameter gradients *sum* to the gradient of the
+    global loss (a backward that summed the cotangents over the ranks
+    would count the loss ``world`` times);
+  - :func:`sum_flat`: the sum over the ranks of a list of tensors, a flat
+    bucket (of at least float32) at a time.
+
 A mean is a SUM all-reduce divided by the world size, as ``pmean`` is
 ``psum`` over the axis size (gloo has no AVG).  Every rank must issue the
 same collectives in the same order, or the run hangs: the lists reduced
@@ -33,6 +44,28 @@ import torch
 import torch.distributed as dist
 
 BUCKET_BYTES = 25 * 2 ** 20  # gradient bytes per all-reduce (torch DDP's)
+
+
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous()
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        ctx.rank, ctx.rows = dist.get_rank(group), x.shape[0]
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+def gather_batch(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` (each as many rows) concatenated in rank order on
+    the leading axis; differentiable, this rank's input getting its own
+    slice of the output's gradient."""
+    return _GatherBatch.apply(x, group)
 
 
 def _mean_(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -115,6 +148,21 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter],
         for p, v in zip(bucket, views):
             if p.grad is None:
                 p.grad = v.to(p.dtype)
+
+
+@torch.no_grad()
+def sum_flat(tensors: Sequence[torch.Tensor], group=None,
+             bucket_bytes: int = BUCKET_BYTES) -> list[torch.Tensor]:
+    """The sum over the ranks of each of ``tensors``, as views of flat
+    buckets of at least float32 (one all-reduce a bucket)."""
+    out = []
+    for bucket in _buckets(tensors, bucket_bytes):
+        dt = torch.promote_types(bucket[0].dtype, torch.float32)
+        flat = torch.cat([t.reshape(-1).to(dt) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        out += [v.view(t.shape) for t, v in
+                zip(bucket, flat.split([t.numel() for t in bucket]))]
+    return out
 
 
 def reduce_aux(aux: dict, group=None) -> dict:

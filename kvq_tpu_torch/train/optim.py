@@ -14,12 +14,17 @@ of kvq_tpu/train/optim.py):
     computes their gradients (CLIP_backbone.py:141-154,
     KSVQE_model.py:1085-1086);
   - EMA over all parameters, e = decay * e + (1 - decay) * p
-    (trainer.py:166-172).
+    (trainer.py:166-172);
+  - ``optimizer_from_config``, ``step_settings`` and ``step_generator``:
+    what a train step reads from the config and how it seeds its draws,
+    shared by the Trainer and the sharded step (parallel/fsdp.py), as
+    kvq_tpu/train/trainer.py reads them for both.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -60,13 +65,14 @@ def freeze(model: torch.nn.Module, frozen_patterns) -> None:
             p.requires_grad_(False)
 
 
-def build_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
+def build_optimizer(named_params, lr: float, weight_decay: float,
                     warmup_iters: int, max_iters: int,
                     backbone_lr_mult: float = 1.0):
-    """(AdamW over the trainable parameters, its LambdaLR schedule).  Step
-    the schedule once after each optimizer step."""
+    """(AdamW over the trainable parameters of ``named_params``, ``(name,
+    parameter)`` pairs, its LambdaLR schedule).  Step the schedule once
+    after each optimizer step."""
     groups = {False: [], True: []}
-    for name, p in model.named_parameters():
+    for name, p in named_params:
         if p.requires_grad:
             groups["_backbone" in name and backbone_lr_mult != 1.0].append(p)
     param_groups = [{"params": groups[False], "lr": lr}]
@@ -78,6 +84,53 @@ def build_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: schedule_factor(step, warmup_iters, max_iters))
     return opt, sched
+
+
+def optimizer_from_config(named_params, config: dict,
+                          steps_per_epoch: int):
+    """``build_optimizer`` from a normalised config: ``optimizer``'s lr
+    (3e-5), wd (0.05) and backbone_lr_mult (1), warmup over
+    ``warmup_epochs`` and the cosine over ``num_epochs + l_num_epochs``
+    epochs of ``steps_per_epoch`` updates."""
+    opt = config.get("optimizer") or {}
+    epochs = float(config.get("num_epochs", 1)) + float(
+        config.get("l_num_epochs", 0))
+    return build_optimizer(
+        named_params,
+        lr=float(opt.get("lr", 3e-5)),
+        weight_decay=float(opt.get("wd", 0.05)),
+        warmup_iters=int(float(config.get("warmup_epochs", 0))
+                         * steps_per_epoch),
+        max_iters=int(epochs * steps_per_epoch),
+        backbone_lr_mult=float(opt.get("backbone_lr_mult", 1.0)))
+
+
+class StepSettings(NamedTuple):
+    contra_w: float         # contra_loss_weight
+    rank_w: float           # rank_loss_weight
+    use_ema: bool           # ema
+    ema_decay: float
+    backbone_lr_mult: float
+
+
+def step_settings(config: dict) -> StepSettings:
+    """The loss weights, EMA and backbone multiplier of a normalised
+    config, with the Trainer's defaults."""
+    opt = config.get("optimizer") or {}
+    return StepSettings(
+        contra_w=float(config.get("contra_loss_weight", 0.3)),
+        rank_w=float(config.get("rank_loss_weight", 0.0)),
+        use_ema=bool(config.get("ema", True)),
+        ema_decay=float(config.get("ema_decay", 0.999)),
+        backbone_lr_mult=float(opt.get("backbone_lr_mult", 1.0)))
+
+
+def step_generator(device, seed: int, rank: int = 0) -> torch.Generator:
+    """Rank ``rank``'s generator of the train forward's draws (QRS,
+    DropPath, dropout): seeded ``seed + 1 + rank * 2**32``, so rank 0
+    draws as the one-process trainer."""
+    return torch.Generator(device=device).manual_seed(
+        seed + 1 + rank * 2 ** 32)
 
 
 @torch.no_grad()

@@ -89,7 +89,14 @@ from ..parallel.mesh import rank, world
 from ..parallel.steps import broadcast_state, reduce_aux, reduce_gradients
 from .evaluator import Evaluator
 from .losses import total_loss
-from .optim import KSVQE_FROZEN_PATTERNS, build_optimizer, ema_update, freeze
+from .optim import (
+    KSVQE_FROZEN_PATTERNS,
+    ema_update,
+    freeze,
+    optimizer_from_config,
+    step_generator,
+    step_settings,
+)
 
 PIPELINE_DEPTH = 2  # train batches prepared and copied ahead of the step
 
@@ -120,23 +127,10 @@ class Trainer:
             freeze(self.model, KSVQE_FROZEN_PATTERNS)
         self.dtype = compute_dtype(cfg)
         self.cast = view_dtype(cfg)
-        opt = cfg.get("optimizer") or {}
-        epochs = float(cfg.get("num_epochs", 1)) + float(
-            cfg.get("l_num_epochs", 0))
-        self.backbone_lr_mult = float(opt.get("backbone_lr_mult", 1.0))
-        self.optimizer, self.schedule = build_optimizer(
-            self.model,
-            lr=float(opt.get("lr", 3e-5)),
-            weight_decay=float(opt.get("wd", 0.05)),
-            warmup_iters=int(float(cfg.get("warmup_epochs", 0))
-                             * steps_per_epoch),
-            max_iters=int(epochs * steps_per_epoch),
-            backbone_lr_mult=self.backbone_lr_mult,
-        )
-        self.contra_w = float(cfg.get("contra_loss_weight", 0.3))
-        self.rank_w = float(cfg.get("rank_loss_weight", 0.0))
-        self.use_ema = bool(cfg.get("ema", True))
-        self.ema_decay = float(cfg.get("ema_decay", 0.999))
+        self.optimizer, self.schedule = optimizer_from_config(
+            self.model.named_parameters(), cfg, steps_per_epoch)
+        self.settings = step_settings(cfg)
+        self.use_ema = self.settings.use_ema
         self.params = list(self.model.parameters())
         self.ema = ([p.detach().clone() for p in self.params]
                     if self.use_ema else [])
@@ -144,8 +138,7 @@ class Trainer:
         self.best = (-1.0, -1.0, -1.0, 1999.0)
         self.best_ema = (-1.0, -1.0, -1.0, 1999.0)
         self.last_losses: dict[str, float] = {}  # of train_eval's epoch
-        self.gen = torch.Generator(device=self.device).manual_seed(
-            seed + 1 + self.rank * 2 ** 32)
+        self.gen = step_generator(self.device, seed, self.rank)
         self._frozen = None
         self._evaluator = None
         self.logger = MetricLogger(log_dir, str(cfg.get("name", "train")))
@@ -181,8 +174,8 @@ class Trainer:
         out = functional_call(self.model, self._compute_tensors(), (dev,),
                               {"gen": self.gen})
         scores, dis = out if self.is_ksvqe else (out, None)
-        loss, aux = total_loss(scores, dev["label"], dis, self.contra_w,
-                               self.rank_w)
+        loss, aux = total_loss(scores, dev["label"], dis,
+                               self.settings.contra_w, self.settings.rank_w)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if self.ddp:
@@ -191,7 +184,7 @@ class Trainer:
         self.optimizer.step()
         self.schedule.step()
         if self.use_ema:
-            ema_update(self.ema, self.params, self.ema_decay)
+            ema_update(self.ema, self.params, self.settings.ema_decay)
         self.step += 1
         return {k: v.detach() for k, v in aux.items()}
 
@@ -372,7 +365,8 @@ class Trainer:
         """(optax count, an ``optimizer.state_dict()`` holding the JAX
         moments) for this trainer's AdamW."""
         count, mu, nu = adamw_state_from_jax(
-            opt_state, frozen=self.is_ksvqe, scaled=self.backbone_lr_mult != 1)
+            opt_state, frozen=self.is_ksvqe,
+            scaled=self.settings.backbone_lr_mult != 1)
         name_of = {id(p): n for n, p in self.model.named_parameters()}
         order = [p for g in self.optimizer.param_groups for p in g["params"]]
         want = {name_of[id(p)] for p in order}

@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_parallel.py).
+"""One rank of the port's data-parallel tests (tests/test_torch_parallel.py,
+and the (data, fsdp) layout's, tests/test_torch_fsdp.py).
 
     python tests/_torch_ddp_worker.py RANK WORLD RENDEZVOUS IN_DIR OUT_DIR \
         SCENARIO [SCENARIO ...]
@@ -200,9 +201,111 @@ def refusals(inp, out):
     return got
 
 
+# ------------------------------------------------- the (data, fsdp) layout
+def _equal_on_ranks(tensors) -> bool:
+    """Whether this rank's tensors equal rank 0's, bit for bit."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1).double() for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    return bool(torch.equal(flat, ref))
+
+
+def _sharded(d, model, dtype=None):
+    """(step_fn, state, result): one (data 2, fsdp 2) step of ``model`` on
+    this rank's rows of ``d["batch"]`` (the forward in ``dtype``, None:
+    the config's), with what every rank reports."""
+    from kvq_tpu_torch.parallel import fsdp, rank, world
+    from kvq_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=2, fsdp=2)
+    step, state = fsdp.make_sharded_train_step(
+        model, d["config"], mesh, min_size=d["min_size"], dtype=dtype)
+    rows = {k: torch.from_numpy(v) for k, v in
+            _my_rows(d["batch"], rank(), world()).items()}
+    aux = step(state, rows)
+    idx = [i for i, t in enumerate(state.trainable) if t]
+    whole = state.whole()
+    return step, state, {
+        "aux": {k: float(v) for k, v in aux.items()},
+        "shards": {n: (tuple(p.shape), a) for n, p, a in
+                   zip(state.names, state.params, state.axes)},
+        "bytes": state.state_bytes(), "step": state.step,
+        "params_equal_rank0": _equal_on_ranks(whole.values()),
+        "grads": dict(zip((state.names[i] for i in idx), state.gather(
+            (state.params[i].grad for i in idx), idx))),
+        "params": whole,
+        "buffers": {n: b.clone() for n, b in model.named_buffers()}}
+
+
+def fsdp_ksvqe(inp, out):
+    """The tiny KSVQE's sharded step and its sharded eval after it; rank 0
+    keeps the whole tensors."""
+    from kvq_tpu_torch.core.checkpoint import load_weights
+    from kvq_tpu_torch.models.vqa_network import build_train_model
+    from kvq_tpu_torch.parallel import fsdp, rank, world
+
+    d = _load(inp, "fsdp_ksvqe.pt")
+    model = build_train_model(d["config"], "cpu", 0)
+    load_weights(model, d["config"]["load_path"])
+    model.KSVQE_head.dropout_ratio = 0.0  # the head in eval, as JAX's
+    _, state, res = _sharded(d, model)
+    res["ema"] = state.whole(use_ema=True)
+    res["moments"] = state.moments()
+    eval_rows = _my_rows(d["eval_batch"], rank(), world())
+    res["eval"] = fsdp.make_sharded_eval_step(model, d["config"])(
+        state, [eval_rows])
+    if rank():
+        for k in ("grads", "params", "ema", "moments", "buffers"):
+            res.pop(k)
+    return res
+
+
+def fsdp_svqa(inp, out):
+    """The tiny SimpleVQA's sharded step in float32 (BatchNorm over the
+    whole batch)."""
+    from kvq_tpu_torch.core.checkpoint import load_weights
+    from kvq_tpu_torch.models.vqa_network import build_train_model
+    from kvq_tpu_torch.parallel import rank
+
+    d = _load(inp, "fsdp_svqa.pt")
+    model = build_train_model(d["config"], "cpu", 0)
+    load_weights(model, d["config"]["load_path"])
+    _, _, res = _sharded(d, model)
+    res["buffers_equal_rank0"] = _equal_on_ranks(
+        [b for n, b in model.named_buffers() if "running_" in n])
+    res.pop("grads")
+    if rank():
+        res.pop("params")
+        res.pop("buffers")
+    return res
+
+
+def fsdp_svqa_f64(inp, out):
+    """The same step in float64: its reduced gradient (rank 0)."""
+    from kvq_tpu_torch.core.checkpoint import load_weights
+    from kvq_tpu_torch.models.vqa_network import build_train_model
+    from kvq_tpu_torch.parallel import rank
+
+    d = _load(inp, "fsdp_svqa.pt")
+    model = build_train_model(d["config"], "cpu", 0)
+    load_weights(model, d["config"]["load_path"])
+    _, _, res = _sharded(d, model.double(), torch.float64)
+    return {"grads": res["grads"]} if rank() == 0 else {}
+
+
+def fsdp_dryrun(inp, out):
+    from kvq_tpu_torch.parallel import world
+    from kvq_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    return dryrun_multichip(world(), "cpu")
+
+
 SCENARIOS = {f.__name__: f for f in (ksvqe, svqa, svqa_bf16, svqa_f64,
                                      world_one, evaluate, cli_train,
-                                     refusals)}
+                                     refusals, fsdp_ksvqe, fsdp_svqa,
+                                     fsdp_svqa_f64, fsdp_dryrun)}
 
 
 def main():

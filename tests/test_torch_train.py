@@ -312,7 +312,8 @@ def test_optimizer_schedule_frozen_and_ema_match_jax():
             mod = getattr(mod, p)
         mod.register_parameter(path[-1], torch.nn.Parameter(_t(a.copy())))
     O.freeze(root, O.KSVQE_FROZEN_PATTERNS)
-    opt, sched = O.build_optimizer(root, lr=1e-2, weight_decay=0.05,
+    opt, sched = O.build_optimizer(root.named_parameters(), lr=1e-2,
+                                   weight_decay=0.05,
                                    warmup_iters=2, max_iters=5,
                                    backbone_lr_mult=0.5)
     named = dict(root.named_parameters())
