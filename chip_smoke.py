@@ -2,9 +2,9 @@
 """Runs the port's main paths — KSVQE eval scoring, Swin-T-3D eval scoring
 (the swin_tiny_grpb model key), KSVQE training and swin_tiny_grpb training,
 then KSVQE scoring and training through the CLIs, then SimpleVQA scoring,
-training and its path from mp4 files, then the data-parallel paths, then
-the two-branch swin_tiny + conv_tiny model, swin_2d_tiny and the full CLIP
-— on one NVIDIA GPU.
+training and its path from mp4 files, then low-resolution sources, then
+the data-parallel paths, then the two-branch swin_tiny + conv_tiny model,
+swin_2d_tiny and the full CLIP — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -97,7 +97,17 @@ the two-branch swin_tiny + conv_tiny model, swin_2d_tiny and the full CLIP
    config/kwai_simpleVQA.yml pointed at them (steps/s, videos/s, the
    Loader alone, the host's ms per video by stage with cv2's decode, the
    card's idle share);
-15. runs the data-parallel paths (``kvq_tpu_torch/parallel/``): (a) KSVQE
+15. runs the low-resolution sources: the port's resize views at 12 sizes
+   where a side grows (uint8 numpy and native branches) against cv2.resize
+   with kvq_tpu's choice of interpolation, and the mosaic's float32
+   upsample against cv2's (IPP's code on this host's CPU: printed, not
+   held); KSVQE through ``cli.test.run`` on 8 synthetic 240x426 sources
+   (the 288 px mosaic through the upsample fallback on the numpy branch,
+   12 K1 + 9 K2 launches a forward, scores within SCORE_TOL of the
+   Evaluator's, the host's ms per video by stage); SimpleVQA through
+   ``cli.slowfast_features`` and ``cli.test.run`` on 4 426x240 mp4s (its
+   520 px view grows both sides; no launch);
+16. runs the data-parallel paths (``kvq_tpu_torch/parallel/``): (a) KSVQE
    training as in step 8 through the Trainer's DDP route in a one-rank NCCL
    group, one step against the one-process step (loss and every gradient),
    the gradient all-reduce timed alone, timed steps with K4 10 + 10 and K5
@@ -112,7 +122,7 @@ the two-branch swin_tiny + conv_tiny model, swin_2d_tiny and the full CLIP
    forward; (d) ``torchrun --standalone --nproc_per_node 1 -m
    kvq_tpu_torch.cli.train --ddp`` on step 11's config over 8 + 4 of those
    mp4s: its exit code, steps/s and first metrics record;
-16. scores the two-branch model "swin_tiny,conv_tiny" (DOVER's technical +
+17. scores the two-branch model "swin_tiny,conv_tiny" (DOVER's technical +
    aesthetic layout, scores summed under reduce_scores) at full width in
    bf16 with use_pallas, B=1, technical and ``asesthetic`` [sic] views of
    32 frames at 224 px: K1 launches per forward (12: one per Swin block),
@@ -121,22 +131,23 @@ the two-branch swin_tiny + conv_tiny model, swin_2d_tiny and the full CLIP
    alone (as the port runs them and through cuDNN's channels-last path),
    the kernel path against the plain path, conv_tiny's f32 score on the
    card (TF32 off) against the CPU's;
-17. scores swin_2d_tiny + VQAHead (B=1, T=8, 224 px): 12 K1 launches a
+18. scores swin_2d_tiny + VQAHead (B=1, T=8, 224 px): 12 K1 launches a
    forward, features and score against the plain path, timings; then one
    train step through ``Trainer`` (B=4, f32 masters, bf16 compute, remat
    off) against the plain path's step (loss and every gradient), its K4
    and K5 launches by route (12 + 12 K4 where the gate fuses every block),
    three more steps and the step's timings;
-18. runs the full CLIP at OpenAI's ViT-B/16 and RN50 shapes from seeded
+19. runs the full CLIP at OpenAI's ViT-B/16 and RN50 shapes from seeded
    weights on 8 images of 224 px and 8 prompts (the tiny synthetic BPE's
    ids padded to 77): its f32 logits on the card (TF32 off) against the
    CPU's within 1e-3 of their largest, and a bf16 forward timed;
-19. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
+20. prints times, steps/s, videos/s, peak memory and a JSON line of kernel
    records, and as its last line ``{"ok": true, "device": {...}}``.
 
-The videos of steps 10 and 11 are synthetic (the config's
-``source_factory``), chosen by the config: the time of their frames is
-not a decode time; step 14 decodes real files.  Exits non-zero without a result when CUDA is absent,
+The videos of steps 10, 11 and 15's KSVQE run are synthetic (the
+config's ``source_factory``), chosen by the config: the time of their
+frames is not a decode time; steps 14 and 15's SimpleVQA run decode real
+files.  Exits non-zero without a result when CUDA is absent,
 when the package is not beside this script, or when any phase fails.
 Imports nothing of JAX.
 """
@@ -1941,12 +1952,13 @@ CLI_TRAIN_VIDEOS, CLI_VAL_VIDEOS = 8, 4  # trained / validated by cli.train
 
 
 class SyntheticVideos:
-    """A dataset's ``source_factory``: the file name's synthetic 1280x720
-    video (seeded by the name's crc32), noting when it was first asked
-    for."""
+    """A dataset's ``source_factory``: the file name's synthetic video,
+    1280x720 unless told (seeded by the name's crc32), noting when it was
+    first asked for."""
 
-    def __init__(self):
+    def __init__(self, height: int = CLI_H, width: int = CLI_W):
         self.first = None
+        self.height, self.width = height, width
 
     def __deepcopy__(self, memo):  # the config's copies share the factory
         return self
@@ -1957,7 +1969,7 @@ class SyntheticVideos:
         if self.first is None:
             self.first = time.perf_counter()
         name = os.path.basename(path)
-        return SyntheticVideoSource(CLI_FRAMES, CLI_H, CLI_W,
+        return SyntheticVideoSource(CLI_FRAMES, self.height, self.width,
                                     seed=zlib.crc32(name.encode()) % 2 ** 31)
 
 
@@ -2639,21 +2651,23 @@ def svqa_train_path(card: str) -> dict:
     return prof
 
 
-def write_mp4(path: str, seed: int) -> None:
-    """CLI_FRAMES frames of CLI_W x CLI_H (portrait) at SVQA_FPS, mp4v: a
-    smooth seeded pattern scrolling and a square crossing it."""
+def write_mp4(path: str, seed: int, height: int = CLI_H,
+              width: int = CLI_W) -> None:
+    """CLI_FRAMES frames of width x height (portrait 720x1280 unless told)
+    at SVQA_FPS, mp4v: a smooth seeded pattern scrolling and a square
+    crossing it."""
     import cv2
 
     rng = np.random.default_rng(seed)
-    small = rng.integers(0, 256, (CLI_H // 40, CLI_W // 40, 3),
+    small = rng.integers(0, 256, (height // 40, width // 40, 3),
                          dtype=np.uint8)
-    base = cv2.resize(small, (CLI_W, CLI_H), interpolation=cv2.INTER_CUBIC)
+    base = cv2.resize(small, (width, height), interpolation=cv2.INTER_CUBIC)
     wr = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), SVQA_FPS,
-                         (CLI_W, CLI_H))
+                         (width, height))
     try:
         for t in range(CLI_FRAMES):
             frame = np.roll(base, 6 * t, axis=0)
-            x, y = (5 * t) % (CLI_W - 120), (3 * t) % (CLI_H - 120)
+            x, y = (5 * t) % (width - 120), (3 * t) % (height - 120)
             frame[y:y + 120, x:x + 120] = (40 * seed) % 256
             wr.write(frame)
     finally:
@@ -2907,6 +2921,312 @@ def svqa_files_path(card: str) -> dict:
             "families_ms": prof["families_ms"],
             "max_abs_score_diff": max(diffs), "phase_s": phase_s,
             "files": {"root": root, "videos": vids, "splits": splits}}
+
+
+# --------------------------------------------------------------------------
+# Low-resolution sources: 240p uploads, where KSVQE's 288 px mosaic takes the
+# upsample fallback (float32 bilinear, then uint8) and SimpleVQA's 520 px
+# view grows both sides (uint8 bilinear); the views at growing and mixed
+# sizes held against cv2 itself on this host
+
+LOW_H, LOW_W = 240, 426          # 240p, landscape (H x W)
+LOW_VIDEOS = 8                   # synthetic sources scored by KSVQE's cli.test
+LOW_FILES = 4                    # mp4s scored by SimpleVQA's cli.test
+# (H, W) -> (oh, ow) where a side grows: kvq_tpu's cv2 takes INTER_LINEAR,
+# or INTER_AREA whose growing side has bilinear taps
+LOW_VIEWS = [(90, 400, 224, 224), (400, 90, 224, 224), (200, 400, 224, 224),
+             (90, 400, 112, 112), (240, 426, 520, 520), (240, 320, 288, 384),
+             (7, 29, 300, 41), (720, 1280, 1080, 1920), (360, 640, 520, 520),
+             (400, 200, 224, 224), (112, 451, 224, 224),
+             (113, 451, 112, 112)]
+LOW_UPSAMPLES = [(180, 320), (240, 426), (200, 250), (100, 100)]  # to 288
+
+
+def cpu_model() -> str:
+    """The host CPU's model name and which of the instruction sets IPP
+    dispatches on it has (from /proc/cpuinfo)."""
+    with open("/proc/cpuinfo") as f:
+        info = dict(line.split(":", 1) for line in f if ":" in line)
+    info = {k.strip(): v.strip() for k, v in info.items()}
+    flags = set(info.get("flags", "").split())
+    return (f"{info.get('model name', 'unknown')}; " + ", ".join(
+        f"{x} {'yes' if x in flags else 'no'}"
+        for x in ("avx2", "fma", "avx512f")))
+
+
+def low_views_check(card: str) -> dict:
+    """The port's resize views at LOW_VIEWS, numpy and native branches,
+    against ``cv2.resize`` with kvq_tpu's choice of interpolation (uint8:
+    OpenCV's own code, the same on every CPU), and the mosaic's float32
+    upsample at LOW_UPSAMPLES against cv2's (IPP's code, chosen by the CPU:
+    reported, not held)."""
+    import cv2
+
+    from kvq_tpu_torch import runtime
+    from kvq_tpu_torch.data import views as V
+    from kvq_tpu_torch.data.resize import resize
+
+    rng = np.random.default_rng(16)
+    views, ups = [], []
+    t0 = time.perf_counter()
+    for h, w, oh, ow in LOW_VIEWS:
+        v = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+        interp = (cv2.INTER_AREA if oh < h or ow < w else cv2.INTER_LINEAR)
+        want = np.stack([cv2.resize(f, (ow, oh), interpolation=interp)
+                         for f in v])
+        got = V.get_resized_video(v, oh, ow)
+        views.append({"size": [h, w, oh, ow],
+                      "cv2_differ": int((got != want).sum()),
+                      "native_differ": int((runtime.resize(v, oh, ow)
+                                            != got).sum()),
+                      "native_1_thread_differ": int((runtime.resize(
+                          v, oh, ow, n_threads=1) != got).sum())})
+    for h, w in LOW_UPSAMPLES:
+        ratio = min(h / 288, w / 288)
+        nh, nw = int(h / ratio), int(w / ratio)
+        v = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+        v = v.astype(np.float32)
+        want = np.stack([cv2.resize(f, (nw, nh),
+                                    interpolation=cv2.INTER_LINEAR)
+                         for f in v])
+        got = resize(v, nh, nw, "linear")
+        ups.append({"size": [h, w, nh, nw],
+                    "max_abs": float(np.abs(got - want).max()),
+                    "differ_share": float((got != want).mean()),
+                    "uint8_differ": int((got.astype(np.uint8)
+                                         != want.astype(np.uint8)).sum())})
+    host = {"cv2": cv2.__version__, "ipp": bool(cv2.ipp.useIPP()),
+            "cpu": cpu_model()}
+    print(f"low-resolution views on this host ({json.dumps(host)}): uint8 "
+          f"views against cv2.resize and the native branch against numpy "
+          f"(pixels that differ), {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps(views)}", flush=True)
+    print(f"the mosaic's float32 upsample against cv2's float32 "
+          f"INTER_LINEAR here (IPP's code, picked by the CPU; a finding, "
+          f"not a gate): {json.dumps(ups)}; {card}", flush=True)
+    if any(r["cv2_differ"] or r["native_differ"] or r["native_1_thread_differ"]
+           for r in views):
+        fail("a uint8 resize view differs from cv2's, or the native branch "
+             "from numpy's")
+    return {"host": host, "views": views, "upsample": ups}
+
+
+def low_host_ms(dataset, n: int = 2) -> dict:
+    """The host's ms per 240p video of a KVQDataset, by stage, one thread:
+    the synthetic source's frames, the float32 upsample (and back to
+    uint8), the mosaic of the upsampled clip, the resize view, the two
+    normalisations, the s2d pack."""
+    from kvq_tpu_torch.data import views as V
+    from kvq_tpu_torch.data.datasets import _filter_view_opts
+    from kvq_tpu_torch.data.decode import decode_views
+    from kvq_tpu_torch.data.fragments import get_spatial_fragments, s2d_pack
+    from kvq_tpu_torch.data.resize import resize
+
+    ms = dict.fromkeys(("synthetic frames", "upsample", "mosaic", "resize",
+                        "normalise", "s2d pack"), 0.0)
+
+    def timed(stage, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        ms[stage] += (time.perf_counter() - t0) * 1e3 / n
+        return out
+
+    def upsample(raw, size):
+        ratio = min(raw.shape[1] / size, raw.shape[2] / size)
+        return resize(raw.astype(np.float32), int(raw.shape[1] / ratio),
+                      int(raw.shape[2] / ratio), "linear").astype(np.uint8)
+
+    for i in range(n):
+        rng = dataset._rng(i)
+        source = dataset.source_factory(dataset.video_infos[i]["filename"])
+        videos, _ = timed("synthetic frames", decode_views, source,
+                          dataset._samplers(rng))
+        raw = videos["technical"]
+        sopt = _filter_view_opts(dataset.sample_types["technical"])
+        up = timed("upsample", upsample, raw,
+                   sopt["fragments_h"] * sopt["fsize_h"])
+        frag = timed("mosaic", get_spatial_fragments, up, rng=rng, **sopt)
+        res = timed("resize", V.get_resized_video, raw, **sopt)
+        frag = timed("normalise", V.normalize, frag, "imagenet_255")
+        timed("normalise", V.normalize, res, "clip")
+        timed("s2d pack", s2d_pack, frag)
+    return ms
+
+
+def low_ksvqe_path(root: str, card: str) -> dict:
+    """KSVQE scoring through ``cli.test.run`` on LOW_VIDEOS synthetic 240p
+    sources: every item on the numpy branch (the native one declines the
+    upsample fallback), 12 K1 + 9 K2 launches a forward, scores against the
+    Evaluator on the same Loader's batches."""
+    import torch
+
+    from kvq_tpu_torch.cli import test as cli_test
+    from kvq_tpu_torch.data import datasets as PD
+    from kvq_tpu_torch.data.pipeline import build_loaders
+    from kvq_tpu_torch.train.evaluator import Evaluator
+
+    rows = write_split(root, "val", LOW_VIDEOS, np.random.default_rng(3))
+    factory = SyntheticVideos(LOW_H, LOW_W)
+    config = {**KSVQE_CONFIG, "num_workers": 6, "data": {
+        "val": kvq_split(root, "val", "test", VAL_VIEW, factory)}}
+    _, loader = build_loaders(config)
+    t0 = time.perf_counter()
+    batches = list(loader.epoch(0))
+    loader_s = time.perf_counter() - t0
+    host_ms = low_host_ms(loader.dataset)
+    want = dict(Evaluator(config, device="cuda").inference_test(
+        batches, os.path.join(root, "ref.txt")))
+    shape = batches[0]["fragment"].shape
+    del batches
+    torch.cuda.empty_cache()
+
+    out = os.path.join(root, "output.txt")
+    native_views = PD._native_views
+    declined = []
+
+    def spy(*a):
+        views = native_views(*a)
+        declined.append(views is None)
+        return views
+
+    PD._native_views = spy
+    try:
+        reset_counts()
+        factory.first = None
+        results = cli_test.run(config, out)
+        end = time.perf_counter()
+        counts = kernel_counts()
+    finally:
+        PD._native_views = native_views
+    e2e_s = end - factory.first
+    with open(out) as f:
+        lines = f.read().splitlines()
+    scores = [s for _, s in results]
+    diffs = [abs(s - want[n]) for n, s in results]
+    print(f"KSVQE cli.test.run on {LOW_VIDEOS} synthetic {LOW_H}x{LOW_W} "
+          f"sources of {CLI_FRAMES} frames (fragment batches {shape}): "
+          f"{e2e_s:.3f} s from the first item to the file written = "
+          f"{LOW_VIDEOS / e2e_s:.3f} videos/s; the Loader alone "
+          f"({loader.num_workers} threads) {LOW_VIDEOS / loader_s:.3f} "
+          f"videos/s; host ms per video by stage, one thread "
+          f"{json.dumps({k: round(v, 2) for k, v in host_ms.items()})}; "
+          f"launches {counts}; items on the numpy branch "
+          f"{sum(declined)}/{len(declined)}; scores against the Evaluator "
+          f"max|d| {max(diffs):.4g} (tol SCORE_TOL {SCORE_TOL} x max(1, "
+          f"|score|)); {card}", flush=True)
+    if (len(lines) != LOW_VIDEOS or [n for n, _ in results]
+            != [n for n, _ in rows] or not all(map(math.isfinite, scores))
+            or lines != [f"{n},{s}" for n, s in results]):
+        fail(f"low-resolution cli.test wrote {lines}, scores {scores}")
+    if counts != dict(NO_LAUNCHES, fused_swin_block=12 * LOW_VIDEOS,
+                      flash_attention_nobias_cl=9 * LOW_VIDEOS):
+        fail(f"low-resolution cli.test: expected 12 K1 and 9 K2 launches "
+             f"per forward and no other kernel, got {counts}")
+    if declined != [True] * LOW_VIDEOS:
+        fail(f"low-resolution cli.test: the native branch took "
+             f"{declined.count(False)} items of the upsample fallback")
+    if not max(d / (SCORE_TOL * max(1.0, abs(want[n])))
+               for d, (n, _) in zip(diffs, results)) <= 1.0:
+        fail("low-resolution cli.test's scores disagree with the "
+             "Evaluator's")
+    return {"videos_per_s": LOW_VIDEOS / e2e_s, "e2e_s": e2e_s,
+            "loader_videos_per_s": LOW_VIDEOS / loader_s,
+            "host_ms_per_video": host_ms, "launches": counts,
+            "max_abs_score_diff": max(diffs)}
+
+
+def low_svqa_path(root: str, card: str) -> dict:
+    """SimpleVQA through ``cli.slowfast_features`` and ``cli.test.run`` on
+    LOW_FILES 240p mp4s (426x240, W x H): its 520 px view grows both sides;
+    no kernel of the port launches."""
+    from kvq_tpu_torch.cli import slowfast_features as cli_sf
+    from kvq_tpu_torch.cli import test as cli_test
+    from kvq_tpu_torch.data import datasets as PD
+    from kvq_tpu_torch.data.pipeline import build_loaders
+    from kvq_tpu_torch.train.evaluator import Evaluator
+
+    vids, feat = os.path.join(root, "videos"), os.path.join(root, "feat")
+    os.makedirs(vids)
+    rng = np.random.default_rng(9)
+    rows = [(f"low_{i}.mp4", float(rng.uniform(1, 5)))
+            for i in range(LOW_FILES)]
+    with ThreadPoolExecutor(max_workers=LOW_FILES) as pool:
+        list(pool.map(lambda i: write_mp4(os.path.join(vids, rows[i][0]),
+                                          i, LOW_H, LOW_W),
+                      range(LOW_FILES)))
+    with open(os.path.join(root, "svqa.csv"), "w") as f:
+        f.write("filename,score\n")
+        f.writelines(f"{n},{v}\n" for n, v in rows)
+    t0 = time.perf_counter()
+    sf = cli_sf.main(["--videos_csv", os.path.join(root, "svqa.csv"),
+                      "--video_root", vids, "--out", feat])
+    sf_s = time.perf_counter() - t0
+    cfg = svqa_config()
+    cfg["load_path"] = cfg["test_load_path"] = None
+    cfg["data"] = {"val": cfg["data"]["val"]}
+    cfg["data"]["val"]["args"].update(
+        anno_file=os.path.join(root, "svqa.csv"), data_prefix=vids,
+        data_prefix_3D=feat)
+    _, loader = build_loaders(cfg)
+    t0 = time.perf_counter()
+    batches = list(loader.epoch(0))
+    loader_s = time.perf_counter() - t0
+    host_ms = svqa_host_ms(loader.dataset, LOW_FILES)
+    want = dict(Evaluator(cfg, device="cuda").inference_test(
+        batches, os.path.join(root, "svqa_ref.txt")))
+    shape = batches[0]["simpleVQA"].shape
+    del batches
+    out = os.path.join(root, "svqa_output.txt")
+    first = []
+    open_video = PD.open_video
+    PD.open_video = lambda *a, **k: (first.append(time.perf_counter())
+                                     or open_video(*a, **k))
+    try:
+        reset_counts()
+        results = cli_test.run(cfg, out)
+        e2e_s = time.perf_counter() - first[0]
+        counts = kernel_counts()
+    finally:
+        PD.open_video = open_video
+    scores = [s for _, s in results]
+    diffs = [abs(s - want[n]) for n, s in results]
+    stages = json.dumps({k: round(v, 2) for k, v in host_ms.items()})
+    print(f"SimpleVQA on {LOW_FILES} {LOW_W}x{LOW_H} (W x H) mp4s: "
+          f"cli.slowfast_features {sf['clips']} clips in {sf_s:.3f} s (model "
+          f"build included); cli.test.run (views {shape}) {e2e_s:.3f} s "
+          f"from the first file opened to output.txt written = "
+          f"{LOW_FILES / e2e_s:.3f} videos/s; "
+          f"the Loader alone ({loader.num_workers} threads) "
+          f"{LOW_FILES / loader_s:.3f} videos/s; host ms per video by stage, "
+          f"one thread {stages}; launches {counts}; scores against the "
+          f"Evaluator max|d| "
+          f"{max(diffs):.3g}; {card}", flush=True)
+    if ([n for n, _ in results] != [n for n, _ in rows]
+            or not all(map(math.isfinite, scores)) or counts != NO_LAUNCHES):
+        fail(f"low-resolution SimpleVQA cli.test: {results}, launches "
+             f"{counts}")
+    if not max(d / (SCORE_TOL * max(1.0, abs(want[n])))
+               for d, (n, _) in zip(diffs, results)) <= 1.0:
+        fail("low-resolution SimpleVQA: scores disagree with the "
+             "Evaluator's")
+    return {"slowfast_s": sf_s, "test_s": e2e_s,
+            "videos_per_s": LOW_FILES / e2e_s,
+            "loader_videos_per_s": LOW_FILES / loader_s, "host_ms": host_ms,
+            "max_abs_score_diff": max(diffs)}
+
+
+def low_res_path(card: str) -> dict:
+    """The low-resolution phase: the views against cv2, KSVQE's cli.test
+    on 240p sources, SimpleVQA's on 240p mp4s."""
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="kvq_low_res_")
+    out = {"views": low_views_check(card),
+           "ksvqe": low_ksvqe_path(root, card),
+           "simplevqa": low_svqa_path(root, card)}
+    shutil.rmtree(root)
+    out["phase_s"] = time.time() - t_phase
+    print(f"low-resolution phase: {out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4326,6 +4646,7 @@ def main() -> int:
     svqa_train = svqa_train_path(card)
     svqa_files = svqa_files_path(card)
     files = svqa_files.pop("files")
+    low_res = low_res_path(card)
     ddp_nccl = nccl_ddp_path(card)
     ddp_svqa = svqa_ddp_path(card)
     ddp_cli = cli_ddp_path(card, files)
@@ -4416,6 +4737,9 @@ def main() -> int:
                                          + ddp_cli["launches"][rec["name"]])
         # the (data, fsdp) phase, rank 0: its timed steps and eval forward
         rec["launches_fsdp_rank0"] = sharded["launches_rank0"][rec["name"]]
+        # KSVQE's cli.test on 240p sources (the upsample fallback)
+        rec["launches_low_resolution"] = (
+            low_res["ksvqe"]["launches"][rec["name"]])
 
     def at_shapes(agg, per):
         """A kernel's times and error at other shapes than its record's."""
@@ -4479,7 +4803,8 @@ def main() -> int:
                        ("k4_fwd", "k4_bwd", "k5_fwd", "k5_bwd"), b1)},
                    "k4_bwd_n49_rows": k4b_49["rows"],
                    "two_branch": dover, "swin_2d_tiny": swin2d,
-                   "clip_full": clip_full, "kernels": kernels}, f,
+                   "clip_full": clip_full, "low_resolution": low_res,
+                   "kernels": kernels}, f,
                   indent=1)
     print(card, flush=True)  # name, power limit: nvidia-smi's own line
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,8 @@ views.
 
 Both work on one frame (H, W, C) or a video (T, H, W, C), uint8 or
 float32, and compute each output pixel from the same taps, weights and
-arithmetic order as OpenCV's generic code (modules/imgproc/src/resize.cpp):
+arithmetic order as the code cv2 runs (OpenCV 5.0, modules/imgproc/src/
+resize.cpp, and for float32 bilinear Intel IPP, which cv2 calls there):
 
 - **area** (``INTER_AREA`` when neither side grows): a separable weighted
   sum, along each row first, then down the columns.  Each output column
@@ -14,16 +15,24 @@ arithmetic order as OpenCV's generic code (modules/imgproc/src/resize.cpp):
   in input order; uint8 results round half to even, as OpenCV's saturate
   cast.  When both scales are integers OpenCV sums whole blocks instead:
   2x2 blocks as ``(sum + 2) >> 2``, others as ``sum * (1 / area)``; so does
-  this.  Equal to cv2 5.0 on every size the tests try.
-- **linear** (``INTER_LINEAR``, and ``INTER_AREA`` when a side grows):
-  two taps per axis at half-pixel centres, clamped at the edges; float32
-  input is interpolated in float32 (within 5e-5 of cv2 on 0-255 values),
-  uint8 input in OpenCV's 11-bit fixed point (cv2 5.0, through its IPP
-  layer, differs by 1 on up to ~2 % of pixels).
+  this.
+- **linear** (``INTER_LINEAR``, and ``INTER_AREA`` when a side grows), on
+  uint8 and in area mode: OpenCV's generic code, two taps per axis whose
+  fraction is rounded to float32 before the floor is taken off it
+  (:func:`linear_taps`); the horizontal taps are clamped at the edges, the
+  vertical ones clip only their rows and keep their fraction.  uint8 runs
+  in OpenCV's 11-bit fixed point, float32 as ``a * w0 + b * w1``.
+- **linear on float32** frames with both sides of 2 or more: IPP's code
+  (:func:`ipp_taps`, :func:`_linear_ipp`), each pass a fused multiply-add
+  ``a + (b - a) * f``; its fraction is taken in float64 and then rounded.
+
+Bit-equal to cv2 5.0 on every size the tests try, the float32 bilinear to
+cv2 with IPP on as shipped, on an AVX-512 host (IPP picks its code by CPU).
 
 The tap tables depend only on the two sizes and are cached.  The scale of
 an axis is ``1 / (out / in)``, as OpenCV computes it: ``in / out`` can
-round to the other side of an integer and move a tap.
+round to the other side of an integer and move a tap (IPP takes
+``in / out``).
 """
 
 from __future__ import annotations
@@ -83,31 +92,100 @@ def area_taps(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=64)
-def linear_taps(src: int, dst: int, area_mode: bool = False):
+def linear_taps(src: int, dst: int, area_mode: bool = False,
+                vertical: bool = False):
     """``(i0, i1, w0, w1)``, each (dst,): the two input positions of each
-    output position and their float32 weights.  ``area_mode`` takes
-    OpenCV's INTER_AREA coefficients for a growing side."""
+    output position and their float32 weights, as OpenCV's generic resize
+    computes them: the position in float64, rounded to float32, then
+    ``s = floor``, ``f -= s``.  ``area_mode`` takes OpenCV's INTER_AREA
+    coefficients for a growing side.  On the horizontal axis a tap outside
+    the row is clamped with its fraction set to 0; on the ``vertical`` one
+    only the rows are clipped, and both weights may read the same row."""
     scale = _scale(src, dst)
     inv = dst / src
-    i0 = np.empty(dst, np.int64)
-    w1 = np.empty(dst, np.float64)
+    s = np.empty(dst, np.int64)
+    w1 = np.empty(dst, np.float32)
     for d in range(dst):
         if area_mode:
-            s = math.floor(d * scale)
-            f = (d + 1) - (s + 1) * inv
-            f = 0.0 if f <= 0 else f - math.floor(f)
+            s[d] = math.floor(d * scale)
+            f = float(np.float32((d + 1) - (s[d] + 1) * inv))
+            w1[d] = 0.0 if f <= 0 else f - math.floor(f)
         else:
-            f = (d + 0.5) * scale - 0.5
-            s = math.floor(f)
-            f -= s
-        if s < 0:
-            s, f = 0, 0.0
-        if s >= src - 1:
-            s, f = src - 1, 0.0
-        i0[d], w1[d] = s, f
-    i1 = np.minimum(i0 + 1, src - 1)
-    return _frozen(i0, i1, (1.0 - w1).astype(np.float32),
-                   w1.astype(np.float32))
+            f = float(np.float32((d + 0.5) * scale - 0.5))
+            s[d] = math.floor(f)
+            w1[d] = f - s[d]
+    if not vertical:
+        w1[(s < 0) | (s >= src - 1)] = 0
+    return _frozen(np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
+                   np.float32(1) - w1, w1)
+
+
+@functools.lru_cache(maxsize=64)
+def ipp_taps(src: int, dst: int):
+    """``(i0, i1, f, n_left, n_right)``: IPP's bilinear taps for float32,
+    the position ``(d + 0.5) * (src / dst) - 0.5`` in float64, its
+    fraction rounded to float32, rows or columns clipped at the edges; and
+    how many output positions lie on each edge (the position < 0 or at
+    least ``src - 1``)."""
+    pos = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    s = np.floor(pos)
+    f = (pos - s).astype(np.float32)
+    s = s.astype(np.int64)
+    return _frozen(np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
+                   f) + (int((s < 0).sum()), int((s >= src - 1).sum()))
+
+
+def _fma(x, y, z) -> np.ndarray:
+    """``x * y + z`` on float32 arrays (``z`` of the result's shape),
+    rounded to float32 once.  The float64 product is exact; the float64
+    sum rounds a second time, which matters only where it lands on a
+    float32 tie: there the sum's own error (Knuth's two-sum) says which way
+    the exact value lies."""
+    p = x.astype(np.float64)
+    p *= np.asarray(y, np.float64)
+    s = p + z
+    flat = s.reshape(-1)
+    at = np.flatnonzero((flat.view(np.int64) & 0x1FFFFFFF) == 0x10000000)
+    if at.size:
+        p, z, t = p.reshape(-1)[at], np.reshape(z, -1)[at], flat[at]
+        back = t - p
+        err = (p - (t - back)) + (z - back)
+        flat[at] = np.nextafter(t, np.copysign(np.inf, err), where=err != 0,
+                                out=t)
+    return s.astype(np.float32)
+
+
+def _edge_columns(out_w: int, n_left: int, n_right: int) -> np.ndarray:
+    """The output columns whose vertical pass IPP does without fusing the
+    multiply-add on channels 0 and 1 of 3: on each edge, the columns past
+    its whole groups of 16 when at least 5 are left over (measured with
+    cv2 5.0 on AVX-512)."""
+    left = n_left % 16 if n_left % 16 >= 5 else 0
+    right = n_right % 16 if n_right % 16 >= 5 else 0
+    return np.r_[n_left - left:n_left, out_w - right:out_w].astype(np.int64)
+
+
+def _linear_ipp(video: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """float32 bilinear as IPP computes it: along the rows, then down the
+    columns, each ``fma(b - a, f, a)``."""
+    y0, y1, fy, _, _ = ipp_taps(video.shape[1], out_h)
+    x0, x1, fx, n_left, n_right = ipp_taps(video.shape[2], out_w)
+    edge = (_edge_columns(out_w, n_left, n_right) if video.shape[3] == 3
+            else np.empty(0, np.int64))
+    fx, fy = fx[:, None], fy[:, None, None]
+
+    def chunk(v):
+        a = np.take(v, x0, axis=2)
+        rows = _fma(np.take(v, x1, axis=2) - a, fx, a)
+        r0 = np.take(rows, y0, axis=1)
+        step = np.take(rows, y1, axis=1) - r0
+        out = _fma(step, fy, r0)
+        if edge.size:
+            out[:, :, edge, :2] = (r0[:, :, edge, :2]
+                                   + step[:, :, edge, :2] * fy)
+        return out
+
+    return _chunks(video, chunk)
 
 
 def _chunks(video: np.ndarray, fn) -> np.ndarray:
@@ -166,8 +244,11 @@ def _area_blocks(video: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 
 def _linear(video: np.ndarray, out_h: int, out_w: int,
             area_mode: bool) -> np.ndarray:
-    y0, y1, b0, b1 = linear_taps(video.shape[1], out_h, area_mode)
-    x0, x1, a0, a1 = linear_taps(video.shape[2], out_w, area_mode)
+    h, w = video.shape[1:3]
+    if video.dtype == np.float32 and not area_mode and min(h, w) > 1:
+        return _linear_ipp(video, out_h, out_w)
+    y0, y1, b0, b1 = linear_taps(h, out_h, area_mode, vertical=True)
+    x0, x1, a0, a1 = linear_taps(w, out_w, area_mode)
     if video.dtype == np.uint8:
         one = float(1 << _COEF_BITS)
         a0, a1, b0, b1 = (np.rint(c * np.float32(one)).astype(np.int32)

@@ -6,8 +6,8 @@ the frames of a clip on ``n_threads`` threads (4, as the JAX package's).
 The library is built at first use with
 ``g++ -O3 -fPIC -shared -std=c++17 -pthread -ffp-contract=off`` (``$CXX``
 when set): no ``-ffast-math``, and no contraction of ``w * v + acc`` into
-fused multiply-adds, so that the resize stays bit-equal to
-data/resize.py.  It needs no OpenCV.  It is cached under ``runtime/_build/``
+fused multiply-adds (nor of the bilinear taps' positions), so that the
+resize stays bit-equal to data/resize.py.  It needs no OpenCV.  It is cached under ``runtime/_build/``
 by a hash of the source and the flags; nothing is built at import.  A
 failed build raises with the compiler's output: no caller falls back to
 numpy on its own.

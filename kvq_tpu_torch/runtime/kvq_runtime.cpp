@@ -8,13 +8,15 @@
 //   kvq_resize            one frame at a time, the resize of
 //                         data/resize.py, bit for bit: area when a side
 //                         shrinks (integer scales as block sums), else
-//                         bilinear in OpenCV's 11-bit fixed point;
+//                         bilinear in OpenCV's 11-bit fixed point, with
+//                         OpenCV's taps;
 //   kvq_resize_normalize  the same, then (v * scale - mean) * (1 / std).
 //
 // The normalisations are the JAX package's C++ expressions, so the mosaic
 // is bit-equal to kvq_tpu.runtime's.  Build without -ffast-math and with
 // -ffp-contract=off: the resize's sums must round after every product, in
-// input order, as numpy's do (runtime/__init__.py builds it so).
+// input order, as numpy's do, and the bilinear taps' positions must round
+// as OpenCV's (runtime/__init__.py builds it so).
 // Frames are split over n_threads std::threads; the calls come through
 // ctypes, which releases the GIL, so the Loader's threads overlap.
 
@@ -91,34 +93,35 @@ AreaTaps area_taps(int src, int dst) {
 }
 
 // two taps per output position, fixed-point weights:
-// data/resize.py:linear_taps and its uint8 branch of _linear
+// data/resize.py:linear_taps and its uint8 branch of _linear.  The fraction
+// is rounded to float before its floor is taken off, as OpenCV does; the
+// horizontal taps are clamped at the edges with fraction 0, the vertical
+// ones (vertical) only clip their rows.
 struct LinearTaps {
   std::vector<int> i0, i1, w0, w1;
 };
 
-LinearTaps linear_taps(int src, int dst, bool area_mode) {
+LinearTaps linear_taps(int src, int dst, bool area_mode, bool vertical) {
   double scale = scale_of(src, dst);
   double inv = (double)dst / src;
   LinearTaps t;
   for (int d = 0; d < dst; ++d) {
     int s;
-    double f;
+    float f;
     if (area_mode) {
       s = (int)std::floor(d * scale);
-      f = (d + 1) - (s + 1) * inv;
-      f = f <= 0 ? 0.0 : f - std::floor(f);
+      f = (float)((d + 1) - (s + 1) * inv);
+      f = f <= 0 ? 0.f : f - std::floor(f);
     } else {
-      f = (d + 0.5) * scale - 0.5;
+      f = (float)((d + 0.5) * scale - 0.5);
       s = (int)std::floor(f);
-      f -= s;
+      f -= (float)s;
     }
-    if (s < 0) s = 0, f = 0.0;
-    if (s >= src - 1) s = src - 1, f = 0.0;
-    float a0 = (float)(1.0 - f), a1 = (float)f;
-    t.i0.push_back(s);
-    t.i1.push_back(std::min(s + 1, src - 1));
-    t.w0.push_back((int)std::nearbyint(a0 * (float)(1 << kCoefBits)));
-    t.w1.push_back((int)std::nearbyint(a1 * (float)(1 << kCoefBits)));
+    if (!vertical && (s < 0 || s >= src - 1)) f = 0.f;
+    t.i0.push_back(std::min(std::max(s, 0), src - 1));
+    t.i1.push_back(std::min(std::max(s + 1, 0), src - 1));
+    t.w0.push_back((int)std::nearbyint((1.f - f) * (float)(1 << kCoefBits)));
+    t.w1.push_back((int)std::nearbyint(f * (float)(1 << kCoefBits)));
   }
   return t;
 }
@@ -154,8 +157,8 @@ struct Resize {
       }
     } else {
       mode = kLinear;
-      ly = linear_taps(H, oh, area);
-      lx = linear_taps(W, ow, area);
+      ly = linear_taps(H, oh, area, true);
+      lx = linear_taps(W, ow, area, false);
     }
   }
 

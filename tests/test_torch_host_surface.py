@@ -6,9 +6,10 @@ Datasets and decode: items bit-equal to kvq_tpu's (arrays, frame indices,
 labels, shapes, names) on seeded synthetic sources and readers and on mp4
 and PNG files written with cv2 (kvq_tpu's numpy/cv2 path: its native
 decoder is switched off, as tests/test_torch_data.py does), at sizes whose
-views shrink or crop (the port's area resize is cv2's bit for bit, its
-bilinear upscale within 1 LSB, tests/test_torch_data.py); the registry's
-names and its opt-dict construction.
+views shrink or crop, and at 400x200 and 240x426 sources whose views grow
+or mix (a side growing, the mosaic's upsample fallback: the port's resize
+is cv2's bit for bit, tests/test_torch_data.py); the registry's names and
+its opt-dict construction.
 
 cli.convert: for each kind, a reference-named state dict of seeded weights
 (the port keeps the reference's names), wrapped as the reference saves it
@@ -136,6 +137,45 @@ def test_legacy_video_datasets_match_jax(name, kw, phase):
 def test_legacy_image_datasets_match_jax(name, kw):
     port = getattr(PLD, name)(IMG_ANN, "", image_reader=_reader, **kw)
     ref = getattr(JLD, name)(IMG_ANN, "", image_reader=_reader, **kw)
+    for i in range(2):
+        _same(port[i], ref[i])
+
+
+# ((H, W) of the source, class, constructor arguments): views that grow
+# or mix
+GROWING_CASES = [
+    ((400, 200), "ResizedVideoDataset", dict(clip_len=8, num_clips=1,
+                                             size=224)),
+    ((400, 200), "FragmentVideoDataset", dict(clip_len=8, num_clips=1,
+                                              fragments=7, fsize=32)),
+    ((240, 426), "ResizedVideoDataset", dict(clip_len=8, num_clips=1,
+                                             size=288)),
+    ((240, 426), "FragmentVideoDataset", dict(clip_len=8, num_clips=1,
+                                              fragments=9, fsize=32)),
+    ((400, 200), "ResizedImageDataset", dict(size=224)),
+    ((240, 426), "FragmentImageDataset", dict(fragments=9, fsize=32)),
+]
+
+
+@pytest.mark.parametrize("size,name,kw", GROWING_CASES,
+                         ids=[f"{n}-{h}x{w}" for (h, w), n, _ in
+                              GROWING_CASES])
+def test_legacy_datasets_match_jax_where_views_grow(size, name, kw):
+    h, w = size
+    if "Image" in name:
+        def reader(path):
+            rng = np.random.default_rng(sum(map(ord, path)))
+            return rng.integers(0, 255, size=(h, w, 3)).astype(np.uint8)
+        port = getattr(PLD, name)(IMG_ANN, "", image_reader=reader, **kw)
+        ref = getattr(JLD, name)(IMG_ANN, "", image_reader=reader, **kw)
+    else:
+        def sources(pkg):
+            return lambda path: pkg.SyntheticVideoSource(
+                40, h, w, seed=sum(map(ord, path)))
+        port = getattr(PLD, name)(ANN, "", source_factory=sources(PDEC),
+                                  **kw)
+        ref = getattr(JLD, name)(ANN, "", source_factory=sources(JDEC),
+                                 **kw)
     for i in range(2):
         _same(port[i], ref[i])
 

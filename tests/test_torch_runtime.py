@@ -6,7 +6,8 @@ package's native runtime (kvq_tpu.runtime, C++ on OpenCV):
     per pixel), within 1e-5 of the numpy branch (which normalises as
     v * (1/std) - mean/std);
   - the resize: its uint8 frames equal data/resize.py's (which equals cv2's
-    area resize); normalised, within 1e-5 of the numpy branch and within
+    area and bilinear resize, growing and mixed sizes too), on one thread
+    and on four; normalised, within 1e-5 of the numpy branch and within
     one CLIP_LSB (one uint8 step through the CLIP std, plus f32 rounding)
     of kvq_tpu.runtime's, whose bilinear goes through OpenCV's own code;
   - one thread and four give the same bits;
@@ -84,6 +85,13 @@ RESIZES = [  # (T, H, W) -> (oh, ow)
     ((2, 20, 30), (64, 48)),       # bilinear upscale
     ((2, 50, 30), (40, 45)),       # one side grows: area's linear taps
     ((2, 64, 64), (64, 64)),       # same size: a copy
+    ((2, 90, 400), (224, 224)),    # mixed: area's taps, one side grows
+    ((2, 400, 90), (112, 112)),
+    ((2, 200, 400), (224, 224)),
+    ((2, 113, 451), (112, 112)),
+    ((2, 240, 426), (520, 520)),   # 240p to SimpleVQA's view: bilinear
+    ((2, 240, 320), (288, 384)),
+    ((2, 7, 29), (300, 41)),
 ]
 
 
@@ -93,6 +101,7 @@ def test_resize_equals_data_resize_and_jax_native(shape, out, jax_native):
     oh, ow = out
     got = R.resize(video, oh, ow)
     np.testing.assert_array_equal(got, PV.get_resized_video(video, oh, ow))
+    np.testing.assert_array_equal(R.resize(video, oh, ow, n_threads=1), got)
     norm = R.resize_normalize(video, oh, ow, PV.CLIP_MEAN, PV.CLIP_STD,
                               div255=True)
     np.testing.assert_allclose(norm, PV.normalize(got, "clip"), atol=1e-5,
