@@ -1180,6 +1180,8 @@ def profile_device(fn, family=None) -> dict:
             host.append((evt.self_cpu_time_total / 1e3, evt.count,
                          evt.key[:80]))
             continue
+        if getattr(evt, "is_user_annotation", False):
+            continue  # a span's range (core/tracing.py), not a kernel
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
         if not us:

@@ -1,7 +1,8 @@
 """Inference CLI (counterpart of kvq_tpu/cli/test.py):
 
     python -m kvq_tpu_torch.cli.test -o config/Kwai_KSVQE_test.yml \
-        [-out output.txt] [--csv prediction.csv] [--device cpu]
+        [-out output.txt] [--csv prediction.csv] [--device cpu] \
+        [--trace_dir DIR]
     torchrun --standalone --nproc_per_node N -m kvq_tpu_torch.cli.test \
         -o config/Kwai_KSVQE_test.yml
 
@@ -16,6 +17,9 @@ output, a ``*_finetuned.msgpack``, or a full ``_last_state.msgpack``, of
 which the params and batch_stats are taken), told apart by content.
 Under torchrun each rank scores its own shard of the split and rank 0
 writes the gathered rows, in the split's order (``train/evaluator.py``).
+``--trace_dir DIR`` records the program's spans over the run, without the
+profiler (``core/tracing.py``), writes them to ``DIR/spans.jsonl``
+(``spans.rank<r>.jsonl`` under torchrun) and prints their summary.
 :func:`run` takes the config as a dict, for callers without PyYAML.
 """
 
@@ -25,6 +29,7 @@ import argparse
 
 import torch.distributed as dist
 
+from ..core import tracing
 from ..core.config import load_config, normalize_config
 from ..data.pipeline import build_loaders
 from ..parallel import launch, rank
@@ -45,11 +50,15 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default: cuda:LOCAL_RANK under torchrun) or "
                    "cpu")
+    p.add_argument("--trace_dir", default=None,
+                   help="record the program's spans and write them to "
+                   "DIR/spans.jsonl (spans.rank<r>.jsonl under torchrun)")
     return p.parse_args(argv)
 
 
 def run(config: dict, output: str = "output.txt", csv: str | None = None,
-        device="cuda") -> list[tuple[str, float]]:
+        device="cuda", trace_dir: str | None = None
+        ) -> list[tuple[str, float]]:
     """Score the config's val split; returns ``(video_name, score)`` in
     the split's order (every rank's rows under torchrun)."""
     device = launch(device)
@@ -57,8 +66,9 @@ def run(config: dict, output: str = "output.txt", csv: str | None = None,
     _, val_loader = build_loaders(config)
     if val_loader is None:
         raise ValueError("the config has no data.val split to score")
-    evaluator = Evaluator(config, device=device)
-    results = evaluator.inference_test(val_loader.epoch(0), output)
+    with tracing.recorded_to(trace_dir):
+        evaluator = Evaluator(config, device=device)
+        results = evaluator.inference_test(val_loader.epoch(0), output)
     if rank() != 0:
         return results
     if csv:
@@ -73,7 +83,8 @@ def run(config: dict, output: str = "output.txt", csv: str | None = None,
 def main(argv=None):
     args = parse_args(argv)
     try:
-        return run(load_config(args.opt), args.output, args.csv, args.device)
+        return run(load_config(args.opt), args.output, args.csv, args.device,
+                   args.trace_dir)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

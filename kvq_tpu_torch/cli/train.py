@@ -2,7 +2,8 @@
 data-parallel over N under torchrun:
 
     python -m kvq_tpu_torch.cli.train -o config/Kwai_KSVQE.yml \
-        -t val -r ./work [--epochs N] [--resume_from work/KSVQE_last_state.pt]
+        -t val -r ./work [--epochs N] [--resume_from work/KSVQE_last_state.pt] \
+        [--trace_dir DIR]
     torchrun --standalone --nproc_per_node N -m kvq_tpu_torch.cli.train \
         -o config/Kwai_KSVQE.yml -r ./work
 
@@ -28,8 +29,11 @@ the config's ``ddp`` decides, as in the JAX package.  ``--debug_nans``
 turns on autograd's anomaly detection.  ``--log_dir DIR`` writes each
 epoch's records (the ``train/`` loss terms, the ``val_n/`` best metrics;
 printed either way) to ``DIR/{name}_metrics.jsonl``, as the JAX trainer
-does under its workdir.  :func:`run` takes the config as a dict, for
-callers without PyYAML.
+does under its workdir.  ``--trace_dir DIR`` records the program's spans
+over the run, without the profiler (``core/tracing.py``), writes them to
+``DIR/spans.jsonl`` (``spans.rank<r>.jsonl`` under torchrun) and prints
+their summary.  :func:`run` takes the config as a dict, for callers
+without PyYAML.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from ..core import tracing
 from ..core.config import load_config, normalize_config
 from ..data.pipeline import build_loaders
 from ..parallel import launch, rank
@@ -72,16 +77,26 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default: cuda:LOCAL_RANK under torchrun) or "
                    "cpu")
+    p.add_argument("--trace_dir", default=None,
+                   help="record the program's spans and write them to "
+                   "DIR/spans.jsonl (spans.rank<r>.jsonl under torchrun)")
     return p.parse_args(argv)
 
 
 def run(config: dict, workdir: str = "./work", test_set: str = "val",
         epochs: int | None = None, seed: int = 42,
         resume_from: str | None = None, device="cuda",
-        log_dir: str | None = None) -> Trainer:
+        log_dir: str | None = None, trace_dir: str | None = None) -> Trainer:
     """Train ``epochs`` epochs (else the config's ``num_epochs``); returns
     the trainer."""
     device = launch(device)
+    with tracing.recorded_to(trace_dir):
+        return _train(config, workdir, test_set, epochs, seed, resume_from,
+                      device, log_dir)
+
+
+def _train(config, workdir, test_set, epochs, seed, resume_from, device,
+           log_dir) -> Trainer:
     config = normalize_config(config)
     os.makedirs(workdir, exist_ok=True)
     train_loader, val_loader = build_loaders(config)
@@ -123,7 +138,7 @@ def main(argv=None):
     try:
         trainer = run(load_config(args.opt), args.resume, args.test_set,
                       args.epochs, args.seed, args.resume_from, args.device,
-                      args.log_dir)
+                      args.log_dir, args.trace_dir)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -6,7 +6,8 @@ kvq_tpu/core/logging.py):
     each also printed without its time; in a data-parallel run rank 0
     alone writes and prints;
   - :func:`profile_trace`: ``torch.profiler`` around a block, exported as
-    a Chrome trace;
+    a Chrome trace, with the program's spans (``core/tracing.py``) beside
+    it;
   - :func:`count_params` and :func:`flops_estimate`
     (``torch.utils.flop_counter``).
 """
@@ -21,6 +22,8 @@ from typing import Any, Mapping
 
 import torch
 import torch.distributed as dist
+
+from . import tracing
 
 
 class MetricLogger:
@@ -52,8 +55,11 @@ class MetricLogger:
 @contextlib.contextmanager
 def profile_trace(logdir: str | None):
     """Profile the block's host and CUDA activity into
-    ``{logdir}/trace.json`` (Chrome's trace format) when ``logdir`` is
-    set; nothing otherwise."""
+    ``{logdir}/trace.json`` (Chrome's trace format), where the program's
+    spans show as ``kvq.*`` ranges over the kernels, and write the spans
+    that began in the block to ``{logdir}/spans.jsonl`` and their summary
+    to ``{logdir}/spans_summary.json``, when ``logdir`` is set; nothing
+    otherwise."""
     if not logdir:
         yield
         return
@@ -63,9 +69,11 @@ def profile_trace(logdir: str | None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    since = tracing.mark()
+    with tracing.recording(), profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    tracing.export(logdir, since)
 
 
 def count_params(module: torch.nn.Module) -> int:

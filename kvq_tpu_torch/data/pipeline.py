@@ -12,7 +12,11 @@ fields its model keys read (:func:`train_fields`: KSVQE's ``fragment``,
 ``resize_video``, ``label``, ``dis_label``; SimpleVQA's ``simpleVQA``,
 ``feat``, ``label``; a Swin key's ``technical`` and ``label``), is neither (:func:`train_host_tensors`).  Both are pre-cast on
 a worker thread (:func:`prepared_in_background`) and copied ahead on a
-side stream (:func:`prefetch_to_device`).
+side stream (:func:`prefetch_to_device`).  Spans (``core/tracing.py``):
+the Loader's ``kvq.loader.wait`` (the consumer), ``kvq.loader.item`` and
+``kvq.loader.collate`` (its workers); ``kvq.pipeline.prep`` (the worker
+thread's ``prepare``), ``kvq.pipeline.prep_wait`` and ``kvq.pipeline.h2d``
+(the consumer's wait for it and its enqueueing of the copies).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.registry import DATASETS
+from ..core.tracing import span
 from ..parallel.sharding import loader_shard
 from . import datasets  # noqa: F401  (registers the dataset classes)
 
@@ -146,11 +151,13 @@ class Loader:
                     return
                 i, idxs = task
                 try:
-                    items = [
-                        self.dataset.__getitem__(int(j), epoch=epoch)
-                        for j in idxs
-                    ]
-                    batch = collate(items)
+                    items = []
+                    for j in idxs:
+                        with span("kvq.loader.item", batch=i, index=int(j)):
+                            items.append(
+                                self.dataset.__getitem__(int(j), epoch=epoch))
+                    with span("kvq.loader.collate", batch=i):
+                        batch = collate(items)
                     batch["sample_index"] = np.asarray(idxs, np.int32)
                 except Exception as e:  # raised to the consumer
                     batch = {"__error__": e}
@@ -167,7 +174,7 @@ class Loader:
 
         try:
             for i in range(len(batches)):
-                with done_lock:
+                with span("kvq.loader.wait", batch=i), done_lock:
                     while i not in done:
                         done_lock.wait()
                     batch = done.pop(i)
@@ -340,26 +347,37 @@ def train_host_tensors(batch: dict, fields, cast: torch.dtype | None,
 
 
 def prepared_in_background(prepare: Callable, items: Iterable,
-                           depth: int = 2) -> Iterator:
+                           depth: int = 2, first_unit: int = 0) -> Iterator:
     """``prepare(item)`` for each item, in order, on one worker thread up
     to ``depth`` items ahead: the casts release the interpreter lock, so
-    they overlap the main thread's dispatch of the model."""
+    they overlap the main thread's dispatch of the model.  Item k's spans
+    take the unit ``first_unit + k``."""
+
+    def prep(item, unit):
+        with span("kvq.pipeline.prep", unit):
+            return prepare(item)
+
+    def result(unit, future):
+        with span("kvq.pipeline.prep_wait", unit):
+            return future.result()
+
     with ThreadPoolExecutor(max_workers=1) as pool:
         ahead: collections.deque = collections.deque()
-        for item in items:
-            ahead.append(pool.submit(prepare, item))
+        for k, item in enumerate(items, first_unit):
+            ahead.append((k, pool.submit(prep, item, k)))
             if len(ahead) > depth:
-                yield ahead.popleft().result()
+                yield result(*ahead.popleft())
         while ahead:
-            yield ahead.popleft().result()
+            yield result(*ahead.popleft())
 
 
 def prefetch_to_device(items: Iterable, device: torch.device,
-                       depth: int = 2) -> Iterator:
+                       depth: int = 2, first_unit: int = 0) -> Iterator:
     """Yield ``(meta, device_tensors)`` for ``(meta, host_tensors)`` items,
     keeping ``depth`` host-to-device copies in flight on a side CUDA
     stream so the next batch's copy overlaps the current batch's compute.
-    On the CPU the tensors pass through."""
+    On the CPU the tensors pass through.  Item k's ``kvq.pipeline.h2d``
+    span takes the unit ``first_unit + k``."""
     if device.type != "cuda":
         for meta, host in items:
             yield meta, host
@@ -375,8 +393,9 @@ def prefetch_to_device(items: Iterable, device: torch.device,
             t.record_stream(cur)
         return meta, dev
 
-    for meta, host in items:
-        with torch.cuda.stream(copy_stream):
+    for unit, (meta, host) in enumerate(items, first_unit):
+        with span("kvq.pipeline.h2d", unit), \
+                torch.cuda.stream(copy_stream):
             dev = {k: t.to(device, non_blocking=True) for k, t in host.items()}
             done = torch.cuda.Event()
             done.record(copy_stream)

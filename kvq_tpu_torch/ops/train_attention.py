@@ -21,7 +21,9 @@ Each is a ``torch.autograd.Function``.  For tensors on the CPU it runs its
 plain versions, forward and an explicit backward written from the same
 formulas and rounding points as the kernels; for CUDA tensors it launches
 the kernels or raises.  ``launches`` on the forward and on the backward
-wrapper count the launches of each.  The numerics are the XLA
+wrapper count the launches of each; the four halves are spans
+(``kvq.k4.fwd``, ``kvq.k4.bwd``, ``kvq.k5.fwd``, ``kvq.k5.bwd``;
+``core/tracing.py``).  The numerics are the XLA
 composition's (row-max softmax, exact-erf GELU), not the TPU kernels'
 fold-softmax clamp or polynomial erf.
 """
@@ -31,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.tracing import span
 from ..nn.layers import LN_EPS, layer_norm
 from . import build
 from . import gemm as gemm_ops
@@ -209,6 +212,7 @@ def _check_attention(name, q, k, v, rel_bias, frag_bias, geo):
                 frag_bias=frag_bias)
 
 
+@span("kvq.k5.fwd")
 def window_attention_train_fwd(q, k, v, rel_bias, frag_bias, geo, scale):
     """K5's forward: (out, row log-sum-exp) on CUDA (the lse is what the
     backward kernel reads), (out, None) on the CPU."""
@@ -249,6 +253,7 @@ def _attention_bwd_cuda(q, k, v, out, dout, lse, rel_bias, frag_bias, geo,
     ), "window attention backward")
 
 
+@span("kvq.k5.bwd")
 def window_attention_train_bwd(q, k, v, rel_bias, frag_bias, geo, scale,
                                out, lse, dout):
     """K5's backward: (dq, dk, dv, drel, dfrag); the kernels on CUDA, the
@@ -312,6 +317,7 @@ def _dp(dp, BW, device):
     return dp
 
 
+@span("kvq.k4.fwd")
 def train_swin_block_fwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
                          dp2):
     """K4's forward (the plain version on the CPU)."""
@@ -330,6 +336,7 @@ def train_swin_block_fwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
     return out
 
 
+@span("kvq.k4.bwd")
 def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
                          dp2, dout):
     """K4's backward: (dx, {key: f32 grad}, drel, dfrag); the kernel

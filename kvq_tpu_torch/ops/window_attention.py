@@ -26,7 +26,9 @@ each layout.  Each replaces the function of the same name.
 Each wrapper takes its plain PyTorch version for tensors that lie on the CPU
 and launches its kernel for CUDA tensors, raising on anything the kernel
 does not take; there is no fallback.  ``launches`` on each wrapper counts
-kernel launches (one per call that reaches the card).
+kernel launches (one per call that reaches the card).  Each wrapper is a
+span (``kvq.k1``, ``kvq.k2``, ``kvq.k3``, ``kvq.k6``, ``kvq.k7``;
+``core/tracing.py``), its plain route included.
 
 The plain versions compute the XLA composition of the JAX package (row-max
 softmax, exact-erf GELU): the TPU kernels' fold-softmax, p-clamp and
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.tracing import span
 from ..nn.layers import LN_EPS, layer_norm
 from . import build
 from . import gemm as gemm_ops
@@ -364,6 +367,7 @@ def block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale,
     return out.view(BW, N, C)
 
 
+@span("kvq.k1")
 def fused_swin_block(x, params, rel_bias, frag_bias, geo: WindowGeometry,
                      scale=None):
     """K1, the eval block: no gradient flows through it (training takes K4,
@@ -410,6 +414,7 @@ def _rows(name, key, t, X, L, C):
     return t.stride(1)
 
 
+@span("kvq.k2")
 def flash_attention_nobias_cl(q, k, v, num_heads: int, scale=None):
     """K2.  q (X, N, C), k/v (X, M, C) -> (X, N, C); heads split along C.
     q, k and v may be channel slices of one fused projection (row stride
@@ -501,6 +506,7 @@ def _head_major_strides(name, **tensors):
     return (ctypes.c_longlong * len(out))(*out)
 
 
+@span("kvq.k3")
 def flash_window_attention_packed(qkv, rel_bias, frag_bias,
                                   geo: WindowGeometry, scale=None):
     """K3, the eval window attention of a block that K1 declines.  qkv:
@@ -542,6 +548,7 @@ def flash_window_attention_packed(qkv, rel_bias, frag_bias,
 flash_window_attention_packed.launches = 0
 
 
+@span("kvq.k6")
 def flash_window_attention(q, k, v, rel_bias, frag_bias, geo: WindowGeometry,
                            scale=None):
     """K6, K3 on head-major tensors: q/k/v (BW, h, N, hd), any strides that
@@ -584,6 +591,7 @@ def flash_window_attention(q, k, v, rel_bias, frag_bias, geo: WindowGeometry,
 flash_window_attention.launches = 0
 
 
+@span("kvq.k7")
 def flash_attention_nobias(q, k, v, scale=None):
     """K7, K2 on head-major tensors: q (X, h, N, hd), k/v (X, h, M, hd),
     any strides that keep each row of hd contiguous.  Returns

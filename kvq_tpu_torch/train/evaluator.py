@@ -11,7 +11,10 @@ against the labels; ``inference_test(batches, output_path)`` writes
 ``video_name,score`` lines.  Batch N+1's padding,
 bf16 pre-cast (on a worker thread) and host-to-device copy are in flight
 while batch N is scored, and batch N's scores are read back only after
-batch N+1 has been dispatched.
+batch N+1 has been dispatched.  Batch N is unit N of the spans
+(``core/tracing.py``): ``kvq.eval.feed`` (getting it out of the prep and
+the copies), ``kvq.eval.forward`` (the model's call) and
+``kvq.eval.readback`` (its scores' copy to the host).
 
 In a data-parallel run (a process group of more than one rank) each rank
 scores its own Loader shard; ``evaluate`` and ``inference_test`` then
@@ -24,6 +27,7 @@ Loader, which does not shuffle.
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -33,6 +37,7 @@ import torch.distributed as dist
 from ..core.checkpoint import load_weights
 from ..core.config import key_list, normalize_config
 from ..core.device import resolve_device
+from ..core import tracing
 from ..core.metrics import VQAMetrics, vqa_metrics
 from ..data.pipeline import (
     host_tensors,
@@ -80,19 +85,32 @@ class Evaluator:
         """Yield ``(batch, n_valid, per-video scores)`` in input order."""
         self.model.eval()
         pending = []
-        for (batch, n), dev in prefetch_to_device(
+        feed = prefetch_to_device(
             prepared_in_background(self._prepare, batches, self.depth),
-            self.device, self.depth,
-        ):
-            out = self.model(dev, reduce_scores=True)
-            if isinstance(out, tuple):
-                out = out[0]
-            pending.append((batch, n, out))
-            if len(pending) >= self.depth:
-                b, n0, o = pending.pop(0)
-                yield b, n0, self._collect(n0, o)
-        for b, n0, o in pending:
-            yield b, n0, self._collect(n0, o)
+            self.device, self.depth)
+        try:
+            for i in itertools.count():
+                tracing.begin_unit(i)
+                with tracing.span("kvq.eval.feed", i):
+                    got = next(feed, None)
+                if got is None:
+                    break
+                (batch, n), dev = got
+                with tracing.span("kvq.eval.forward", i):
+                    out = self.model(dev, reduce_scores=True)
+                if isinstance(out, tuple):
+                    out = out[0]
+                pending.append((i, batch, n, out))
+                if len(pending) >= self.depth:
+                    yield self._read_back(*pending.pop(0))
+            for p in pending:
+                yield self._read_back(*p)
+        finally:
+            feed.close()
+
+    def _read_back(self, unit: int, batch: dict, n: int, out):
+        with tracing.span("kvq.eval.readback", unit):
+            return batch, n, self._collect(n, out)
 
     def _columns(self, batches: Iterable[dict], field: str) -> tuple:
         """(dataset indices, scores, ``field``'s values) of every scored

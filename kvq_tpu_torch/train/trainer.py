@@ -16,6 +16,11 @@ loss), the backward, the AdamW and schedule steps, the EMA update and
 the host waits for the card.  ``train_epoch(batches)`` overlaps the next
 batch's pre-cast (worker thread) and host-to-device copy (side stream)
 with the current step and reads the losses once, after the last step.
+Step s is unit s of the spans (``core/tracing.py``): ``kvq.train.feed``,
+``kvq.train.cast`` (the bf16 copies of the masters), ``kvq.train.forward``
+(``functional_call`` and ``total_loss``), ``kvq.train.backward``,
+``kvq.train.allreduce`` (data-parallel), ``kvq.train.optimizer`` (AdamW
+and the schedule) and ``kvq.train.ema``.
 
 ``evaluate(batches, use_ema)`` scores the raw or the EMA weights through
 the :class:`~kvq_tpu_torch.train.evaluator.Evaluator`; ``train_eval``
@@ -67,6 +72,7 @@ from ..core.checkpoint import (
 from ..core.config import model_keys, normalize_config
 from ..core.device import resolve_device
 from ..core.from_jax import adamw_state_from_jax, map_jax_tree
+from ..core import tracing
 from ..core.logging import MetricLogger
 from ..core.metrics import VQAMetrics
 from ..data.pipeline import (
@@ -170,21 +176,31 @@ class Trainer:
                 f"a data-parallel step needs at least 2 samples a rank, got "
                 f"{dev['label'].shape[0]}: the correlation losses are "
                 f"degenerate on one")
-        self.model.train()
-        out = functional_call(self.model, self._compute_tensors(), (dev,),
-                              {"gen": self.gen})
-        scores, dis = out if self.is_ksvqe else (out, None)
-        loss, aux = total_loss(scores, dev["label"], dis,
-                               self.settings.contra_w, self.settings.rank_w)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        span = tracing.span
+        tracing.begin_unit(self.step)
+        with span("kvq.train.cast"):
+            tensors = self._compute_tensors()
+        with span("kvq.train.forward"):
+            self.model.train()
+            out = functional_call(self.model, tensors, (dev,),
+                                  {"gen": self.gen})
+            scores, dis = out if self.is_ksvqe else (out, None)
+            loss, aux = total_loss(scores, dev["label"], dis,
+                                   self.settings.contra_w,
+                                   self.settings.rank_w)
+        with span("kvq.train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         if self.ddp:
-            reduce_gradients(self.params)
-            aux = reduce_aux(aux)
-        self.optimizer.step()
-        self.schedule.step()
+            with span("kvq.train.allreduce"):
+                reduce_gradients(self.params)
+                aux = reduce_aux(aux)
+        with span("kvq.train.optimizer"):
+            self.optimizer.step()
+            self.schedule.step()
         if self.use_ema:
-            ema_update(self.ema, self.params, self.settings.ema_decay)
+            with span("kvq.train.ema"):
+                ema_update(self.ema, self.params, self.settings.ema_decay)
         self.step += 1
         return {k: v.detach() for k, v in aux.items()}
 
@@ -202,11 +218,19 @@ class Trainer:
     def train_epoch(self, batches: Iterable[dict]) -> dict[str, float]:
         """Steps over ``batches``; returns the last step's loss terms."""
         last: dict = {}
-        for _, dev in prefetch_to_device(
-            prepared_in_background(self._prepare, batches, PIPELINE_DEPTH),
-            self.device, PIPELINE_DEPTH,
-        ):
-            last = self._step(dev)
+        feed = prefetch_to_device(
+            prepared_in_background(self._prepare, batches, PIPELINE_DEPTH,
+                                   self.step),
+            self.device, PIPELINE_DEPTH, self.step)
+        try:
+            while True:
+                with tracing.span("kvq.train.feed", self.step):
+                    got = next(feed, None)
+                if got is None:
+                    break
+                last = self._step(got[1])
+        finally:
+            feed.close()
         return {k: float(v) for k, v in last.items()}
 
     # ------------------------------------------------------------ evaluation

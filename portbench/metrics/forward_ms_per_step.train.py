@@ -1,0 +1,24 @@
+"""ms a train step that the dispatch thread spent on the forward: the bf16
+copies of the f32 masters (``kvq.train.cast``), ``functional_call`` and
+``total_loss`` (``kvq.train.forward``), over the traced part of the window:
+the total of the ``kvq.train.cast``, ``kvq.train.forward`` spans
+(``kvq_tpu_torch.core.tracing``, recorded while the profiler runs) over the
+``kvq.train.forward`` spans the recorder saw.  Nothing where the program
+records no spans, or no ``kvq.train.forward`` span."""
+
+SPANS = ('kvq.train.cast', 'kvq.train.forward')
+
+
+def read(r):
+    try:
+        from kvq_tpu_torch.core import tracing
+    except ImportError:  # a program without the span recorder
+        return None
+    summ = tracing.summary()
+    units = summ.get("kvq.train.forward", {}).get("dispatch", {}).get(
+        "count", 0)
+    if not units:
+        return None
+    ms = sum(summ.get(n, {}).get("dispatch", {}).get("total_ms", 0.0)
+             for n in SPANS)
+    return ms / units

@@ -192,6 +192,40 @@ def test_cli_train_one_epoch_then_resume(project, tmp_path):
                for k in first["params"])
 
 
+def test_cli_test_trace_dir_writes_spans(project, tmp_path, capsys):
+    """``--trace_dir``: the run's spans, the Loader's and the kernels'
+    among them, in ``spans.jsonl`` and its summary printed."""
+    _, cfg_path, _, _ = project
+    trace = tmp_path / "spans"
+    cli_test.main(["-o", cfg_path, "-out", str(tmp_path / "o.txt"),
+                   "--device", "cpu", "--trace_dir", str(trace)])
+    spans = [json.loads(x) for x in open(trace / "spans.jsonl")]
+    names = {s["name"] for s in spans}
+    assert {"kvq.loader.wait", "kvq.loader.item", "kvq.loader.collate",
+            "kvq.eval.feed", "kvq.eval.forward", "kvq.eval.readback",
+            "kvq.pipeline.prep", "kvq.k1"} <= names
+    assert sorted(s["unit"] for s in spans
+                  if s["name"] == "kvq.eval.forward") == list(range(N_VIDEOS))
+    assert sum(s["name"] == "kvq.loader.item" for s in spans) == N_VIDEOS
+    assert "kvq.eval.forward" in capsys.readouterr().out
+    assert json.load(open(trace / "spans_summary.json"))[
+        "kvq.eval.forward"]["dispatch"]["count"] == N_VIDEOS
+
+
+def test_cli_train_trace_dir_writes_spans(project, tmp_path):
+    _, cfg_path, _, _ = project
+    trace = tmp_path / "spans"
+    cli_train.main(["-o", cfg_path, "-t", "val", "-r", str(tmp_path / "w"),
+                    "--epochs", "1", "--device", "cpu", "--trace_dir",
+                    str(trace)])
+    spans = [json.loads(x) for x in open(trace / "spans.jsonl")]
+    steps = [s["unit"] for s in spans if s["name"] == "kvq.train.backward"]
+    assert steps == [0, 1]  # 4 videos, batches of 2
+    assert {"kvq.train.feed", "kvq.train.cast", "kvq.train.forward",
+            "kvq.train.optimizer", "kvq.train.ema", "kvq.eval.forward",
+            "kvq.loader.item"} <= {s["name"] for s in spans}
+
+
 def test_cli_train_needs_both_splits(project, tmp_path):
     _, _, config, _ = project
     cfg = dict(config, data={"train": config["data"]["train"]})

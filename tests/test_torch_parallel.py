@@ -68,6 +68,7 @@ from kvq_tpu.train.trainer import Trainer as JTrainer
 from kvq_tpu.train.trainer import array_batch
 from kvq_tpu_torch.cli import test as cli_test
 from kvq_tpu_torch.core import logging as plogging
+from kvq_tpu_torch.core import tracing
 from kvq_tpu_torch.core.from_jax import map_jax_tree, state_dict_from_jax
 from kvq_tpu_torch.core.registry import DATASETS
 from kvq_tpu_torch.data import datasets as PD
@@ -563,5 +564,16 @@ def test_count_params_flops_and_trace(inputs, tmp_path):
     x = torch.zeros(4, 16)
     assert plogging.flops_estimate(lin, x) == 2 * 4 * 16 * 8
     with plogging.profile_trace(str(tmp_path / "trace")):
-        lin(x)
-    assert json.loads((tmp_path / "trace" / "trace.json").read_text())
+        with tracing.span("kvq.test.linear"):
+            lin(x)
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert trace
+    # the program's spans: ranges in the Chrome trace, and written beside it
+    assert "kvq.test.linear" in {e.get("name") for e in trace["traceEvents"]}
+    spans = [json.loads(line) for line in
+             (tmp_path / "trace" / "spans.jsonl").read_text().splitlines()]
+    # a collection during the block is recorded too (kvq.gc)
+    assert [s["name"] for s in spans if s["name"] != "kvq.gc"] == [
+        "kvq.test.linear"]
+    assert "kvq.test.linear" in json.loads(
+        (tmp_path / "trace" / "spans_summary.json").read_text())

@@ -193,8 +193,9 @@ def device_ms(fn, calls: int = 10) -> tuple[float, dict]:
         torch.cuda.synchronize()
     parts: dict = {}
     for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")) != "DeviceType.CUDA":
-            continue
+        if (str(getattr(e, "device_type", "")) != "DeviceType.CUDA"
+                or getattr(e, "is_user_annotation", False)):
+            continue  # host events; a span's range is no kernel
         part = _part(e.key)
         parts[part] = (parts.get(part, 0.0)
                        + getattr(e, "self_device_time_total", 0.0) / 1e3 / calls)
