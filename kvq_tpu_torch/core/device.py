@@ -8,11 +8,12 @@ import functools
 import torch
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def index_tensor(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """``values`` as an int64 tensor on ``device``, made once.  Copying a
     new index tensor from pageable host memory in every forward would make
-    the host wait for the card's queue to drain."""
+    the host wait for the card's queue to drain.  Kept for the process: a
+    captured CUDA graph (``nn/eval_graphs.py``) reads it by address."""
     return torch.as_tensor(values, dtype=torch.int64, device=device)
 
 

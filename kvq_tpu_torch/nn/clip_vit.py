@@ -55,11 +55,12 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(valid[None, :], w, 0).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _resize_weights_on(n_in: int, n_out: int,
                        device: torch.device) -> torch.Tensor:
     """:func:`_resize_weights` on ``device``, copied there once: a copy from
-    host memory in every forward would make the host wait for the card."""
+    host memory in every forward would make the host wait for the card.
+    Kept for the process: a captured CUDA graph reads it by address."""
     return torch.as_tensor(_resize_weights(n_in, n_out), device=device)
 
 

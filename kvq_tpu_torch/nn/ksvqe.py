@@ -24,6 +24,9 @@ A training forward (``model.train()``) draws, from the one generator it is
 given and in this order: the QRS noise, then each Swin block's two DropPath
 masks.  The distortion tool sees the selected frames detached, and CONTRIQUE
 keeps eval semantics (frozen BatchNorm), as in the JAX package.
+
+An eval forward on the card without autograd replays its two halves, split
+at QRS's pick, as CUDA graphs (``nn/eval_graphs.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..train.losses import distortion_contrastive_supervised
 from .cdm import AdapterMLP, CrossAttention, DistFiLM, SemanticFiLM, TemporalAttention
 from .clip_vit import CLIPVisionTower
 from .contrique import CONTRIQUE
+from .eval_graphs import EvalGraphs
 from .layers import LayerNorm, PatchEmbed3D
 from .regionnet import (
     RegionSelector,
@@ -166,9 +170,28 @@ class KSVQE(nn.Module):
         n_mod = n_stages - cfg.tuning_stage
         self.a1 = nn.Parameter(torch.full((n_mod, 1), float(cfg.a1)))
         self.a2 = nn.Parameter(torch.full((n_mod, 1), float(cfg.a2)))
+        self._graphs = EvalGraphs()
 
-    def _select_and_embed_packed(self, fragment, cls_attn, group_id, gen):
-        """QRS + patch embed on an s2d-packed fragment (B, T/2, H/4, W/4, 96).
+    def _frames(self, fragment) -> int:
+        """The frames of a fragment, (B, T, H, W, C) or s2d-packed
+        (B, T/2, H/4, W/4, 96)."""
+        pt = self.config.patch_size[0]
+        if not self.config.s2d_input:
+            return fragment.shape[1]
+        if pt != 2:
+            raise ValueError("s2d_input requires temporal patch 2")
+        return fragment.shape[1] * pt
+
+    def _extract(self, fragment, sel, anchor):
+        """The regions QRS picked (``sel``) of ``fragment``: weighted by
+        the soft pick in training, indexed by the hard pick at eval."""
+        extract = (extract_region_weighted if self.training
+                   else extract_region_hard)
+        return extract(fragment, sel, anchor, self.selector.k_side)
+
+    def _embed_packed(self, fragment, sel):
+        """The picked regions + patch embed on an s2d-packed fragment
+        (B, T/2, H/4, W/4, 96).
 
         Keyframe-group boundaries fall at odd frame indices, so the two
         frames of a packed pair can select different regions: each frame's
@@ -177,19 +200,12 @@ class KSVQE(nn.Module):
         Returns (trunk tokens (B, T/2, 56, 56, C), dist pixels
         (B, T/2, 224, 224, 3))."""
         pt, ph, pw = self.config.patch_size
-        if pt != 2:
-            raise ValueError("s2d_input requires temporal patch 2")
         B, T2, Hp, Wp, K = fragment.shape
         Cs = K // pt
         anchor = self.selector.anchor // ph
-        k_side = self.selector.k_side
-        train = self.training
-        sel = self.selector.select(cls_attn, group_id,
-                                   (Hp // anchor, Wp // anchor), train, gen)
-        extract = extract_region_weighted if train else extract_region_hard
         halves = [
-            extract(fragment[..., ti * Cs:(ti + 1) * Cs], sel[:, ti::pt],
-                    anchor, k_side)
+            self._extract(fragment[..., ti * Cs:(ti + 1) * Cs],
+                          sel[:, ti::pt], anchor)
             for ti in range(pt)
         ]
         x = self.patch_embed(torch.cat(halves, dim=-1), packed=True)
@@ -202,26 +218,65 @@ class KSVQE(nn.Module):
         return x, dist_in
 
     def forward(self, batch, gen=None):
-        """``gen``: the torch.Generator of a training forward's draws."""
-        cfg = self.config
+        """``gen``: the torch.Generator of a training forward's draws.
+
+        The forward is three calls: :meth:`semantic_segment`, QRS's pick
+        (:meth:`pick`) and :meth:`trunk_segment`.  An eval forward on the
+        card without autograd replays the two segments as CUDA graphs
+        (:mod:`.eval_graphs`), the pick running eagerly between them; every
+        other forward makes the three calls eagerly."""
+        if self._graphs.engages(self, batch):
+            return self._graphs(self, batch)
+        fragment, cls_attn, pat_tokens = self.semantic_segment(
+            batch["fragment"], batch["resize_video"])
+        sel = self.pick(cls_attn, fragment, gen)
+        return self.trunk_segment(fragment, sel, pat_tokens,
+                                  batch["dis_label"], gen)
+
+    def semantic_segment(self, fragment, revideo):
+        """The forward up to QRS's pick: the views cast to the compute
+        dtype, the keyframes and the CLIP tool.  Returns (the fragment in
+        the compute dtype, cls_attn (B, n_key, L), pat_tokens
+        (B, n_key, L, D))."""
         dt = self.patch_embed.proj.weight.dtype
-        revideo = batch["resize_video"].to(dt)
-        fragment = batch["fragment"].to(dt)
-        dis_label = batch["dis_label"]
-        B = fragment.shape[0]
-        T = fragment.shape[1] * (cfg.patch_size[0] if cfg.s2d_input else 1)
+        revideo = revideo.to(dt)
+        fragment = fragment.to(dt)
+        B, T = fragment.shape[0], self._frames(fragment)
         if T != revideo.shape[1]:
             raise ValueError(f"fragment {tuple(fragment.shape)} and resize "
                              f"view {tuple(revideo.shape)} disagree on T")
-
-        keyframes, group_id = keyframe_schedule(T)
+        keyframes, _ = keyframe_schedule(T)
         n_key = len(keyframes)
         kf = revideo.index_select(1, index_tensor(keyframes, revideo.device))
         cls_attn, _cls_token, pat_tokens = self.CLIP_tool(
             kf.reshape(B * n_key, *kf.shape[2:]))
         L = cls_attn.shape[-1]
-        cls_attn = cls_attn.reshape(B, n_key, L)
-        pat_tokens = pat_tokens.reshape(B, n_key, L, -1)
+        return (fragment, cls_attn.reshape(B, n_key, L),
+                pat_tokens.reshape(B, n_key, L, -1))
+
+    def pick(self, cls_attn, fragment, gen=None):
+        """QRS's pick (``RegionSelector.select``) on the anchor grid of
+        ``fragment`` (as :meth:`semantic_segment` returns it): region
+        indices (B, T) at eval, soft weights (B, T, regions) in training,
+        drawn from ``gen``."""
+        _, group_id = keyframe_schedule(self._frames(fragment))
+        anchor = self.selector.anchor
+        if self.config.s2d_input:
+            anchor //= self.config.patch_size[1]
+        grid_hw = (fragment.shape[2] // anchor, fragment.shape[3] // anchor)
+        return self.selector.select(cls_attn, group_id, grid_hw,
+                                    self.training, gen)
+
+    def trunk_segment(self, fragment, sel, pat_tokens, dis_label, gen=None):
+        """The forward from QRS's pick ``sel`` on: the picked regions and
+        the patch embed, CONTRIQUE and the distortion adapter, the
+        contrastive loss, the Swin stages with CDM after each stage from
+        ``tuning_stage``, and the final norm.  Returns (features,
+        the contrastive loss)."""
+        cfg = self.config
+        keyframes, group_id = keyframe_schedule(self._frames(fragment))
+        n_key = len(keyframes)
+        L = pat_tokens.shape[2]
         # CDM sees the temporally-halved frames; each attends to its
         # keyframe's tokens.  Uniform group runs let the semantic k/v run on
         # the n_key distinct keyframe token sets with queries grouped.
@@ -232,11 +287,9 @@ class KSVQE(nn.Module):
         gid_half_ix = index_tensor(gid_half, fragment.device)
 
         if cfg.s2d_input:
-            x, dist_in = self._select_and_embed_packed(fragment, cls_attn,
-                                                       group_id, gen)
+            x, dist_in = self._embed_packed(fragment, sel)
         else:
-            x_sel = self.selector(fragment, cls_attn, group_id,
-                                  self.training, gen)
+            x_sel = self._extract(fragment, sel, self.selector.anchor)
             x = self.patch_embed(x_sel)
             dist_in = x_sel.detach()[:, ::2]
         dist_tok = self.distortion_tool(dist_in)  # (B, T/2, G, 128) f32

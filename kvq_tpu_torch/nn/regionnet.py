@@ -172,16 +172,6 @@ class RegionSelector:
             return categorical_indicator(scores, draw)
         return index_indicator(draw, scores.shape[-1], scores.dtype)
 
-    def __call__(self, fragment, cls_attn, group_id, train: bool = False,
-                 gen=None):
-        grid_hw = (fragment.shape[2] // self.anchor,
-                   fragment.shape[3] // self.anchor)
-        sel = self.select(cls_attn, group_id, grid_hw, train, gen)
-        if train:
-            return extract_region_weighted(fragment, sel, self.anchor,
-                                           self.k_side)
-        return extract_region_hard(fragment, sel, self.anchor, self.k_side)
-
 
 def _tanh_gelu(x):
     return F.gelu(x, approximate="tanh")  # flax's nn.gelu default

@@ -98,7 +98,7 @@ def relative_position_index(window_size: tuple[int, int, int]) -> np.ndarray:
     return rel.sum(-1)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)  # kept: a captured graph reads it
 def _rpi_tensor(table_window, n, device):
     rpi = relative_position_index(tuple(table_window))[:n, :n]
     return torch.as_tensor(rpi.reshape(-1), device=device)

@@ -104,18 +104,28 @@ def window_token_ids(dims, window, shift, fragments):
     return fid.astype(np.int64), seg.astype(np.int64)
 
 
+@functools.lru_cache(maxsize=None)
+def _token_ids_on(dims, window, shift, fragments, device):
+    """:func:`window_token_ids` on ``device`` (fid as float32), copied there
+    once and kept for the process: a copy from host memory in every forward
+    would make the host wait for the card, and a captured CUDA graph
+    (``nn/eval_graphs.py``) reads them by address."""
+    fid, seg = window_token_ids(dims, window, shift, fragments)
+    return (torch.as_tensor(fid, device=device, dtype=torch.float32),
+            torch.as_tensor(seg, device=device))
+
+
 def gate_and_mask(geo: WindowGeometry, device):
     """(nW, N, N) fragment gate (the unclamped sum of |Δ fragment id| — a
     reference quirk: it can exceed 1) and additive seam mask (-100 across
     shifted-window seams, or None when unshifted), built on ``device``."""
-    fid, seg = window_token_ids(geo.dims, geo.window, geo.shift, geo.fragments)
-    fid = torch.as_tensor(fid, device=device, dtype=torch.float32)
+    fid, seg = _token_ids_on(geo.dims, geo.window, geo.shift, geo.fragments,
+                             torch.device(device))
     gate = 0
     for a in range(3):
         gate = gate + (fid[:, :, None, a] - fid[:, None, :, a]).abs()
     mask = None
     if any(geo.shift):
-        seg = torch.as_tensor(seg, device=device)
         mask = torch.where(seg[:, :, None] != seg[:, None, :], -100.0, 0.0)
     return gate, mask
 
