@@ -400,7 +400,10 @@ class Train:
         one step) and the parameters' change after three, leaf by leaf by
         norm (the worst leaf and the median leaf: ``grad_gap``,
         ``grad_gap_median``, ``change_gap``, ``change_gap_median``), and,
-        where the model has QRS, its input and picks.  The
+        where the model has QRS, its input and picks.  The reference
+        follows the schedule's optimizer and loss; with the
+        configuration's ``reference_rows`` it computes each step (and the
+        control each of its own) in blocks of that many rows.  The
         configuration's ``limits`` say which of them are compared (PERF.md
         gives why)."""
         from ..reference.network import TrainStep, is_frozen
@@ -412,12 +415,13 @@ class Train:
                    for i in range(Train.COMPARED)]
         sched = {**ctx.config["schedule"],
                  "steps_per_epoch": ctx.config["steps_per_epoch"]}
+        rows = ctx.config.get("reference_rows")
         if control is not None:  # the control in the program's place
             net = _reference(ctx)
             sel = getattr(net.backbone, "selector", None)
             if sel is not None:
                 sel.record = []
-            step = TrainStep(net, sched, ctx.seed, ctx.device)
+            step = TrainStep(net, sched, ctx.seed, ctx.device, rows)
             p0 = [p.detach().clone() for p in step.params]
             losses, grads = [], None
             for i, b in enumerate(batches):
@@ -439,7 +443,7 @@ class Train:
         sel = getattr(net.backbone, "selector", None)
         if sel is not None:
             sel.follow = collections.deque(state["rec_records"])
-        step = TrainStep(net, sched, ctx.seed, ctx.device)
+        step = TrainStep(net, sched, ctx.seed, ctx.device, rows)
         names = [n for n, _ in net.named_parameters()
                  if not is_frozen(net.key, n)]
         if names != state["names"]:

@@ -10,7 +10,10 @@ the cell's own size, the tests on the CPU at a tiny one.
 - ``score_altered``: the head's scores, where it produces them, scaled by
   1.5;
 - ``scores_shifted``: the Evaluator's read-back hands each batch the
-  scores of the batch before it.
+  scores of the batch before it;
+- ``one_learning_rate``: the Trainer's optimizer built with
+  ``backbone_lr_mult`` 1, whatever the configuration states;
+- ``rank_dropped``: the Trainer's rank loss weight set to 0.
 
 Each is a context manager that patches the program's modules and undoes
 it on exit.  One card: no exchange between chips to leave out.
@@ -105,6 +108,34 @@ def scores_shifted():
         yield
 
 
+@contextlib.contextmanager
+def one_learning_rate():
+    from kvq_tpu_torch.train import trainer
+
+    orig = trainer.optimizer_from_config
+
+    def single(named_params, config, steps_per_epoch):
+        opt = {**(config.get("optimizer") or {}), "backbone_lr_mult": 1.0}
+        return orig(named_params, {**config, "optimizer": opt},
+                    steps_per_epoch)
+    with _patched(trainer, "optimizer_from_config", single):
+        yield
+
+
+@contextlib.contextmanager
+def rank_dropped():
+    from kvq_tpu_torch.train import trainer
+
+    orig = trainer.step_settings
+
+    def settings(config):
+        return orig(config)._replace(rank_w=0.0)
+    with _patched(trainer, "step_settings", settings):
+        yield
+
+
 FAULTS = {"state_unchanged": state_unchanged, "half_batch": half_batch,
           "answer_altered": answer_altered, "score_altered": score_altered,
-          "scores_shifted": scores_shifted}
+          "scores_shifted": scores_shifted,
+          "one_learning_rate": one_learning_rate,
+          "rank_dropped": rank_dropped}

@@ -8,7 +8,8 @@ the program's, so one state dict loads into both.
 
 Every training draw (DropPath, dropout) comes from the generator passed
 in, in the program's order, so that a generator seeded as the program's
-gives the same masks.
+gives the same masks; a :class:`DrawTape` in its place keeps them for a
+batch that is computed again in blocks of rows.
 """
 
 from __future__ import annotations
@@ -53,10 +54,62 @@ class LayerNorm(nn.Module):
 
 
 def keep_multipliers(shape, rate: float, gen, device) -> torch.Tensor:
-    """float32 ``mask / keep``, mask ~ Bernoulli(1 - rate), from ``gen``."""
+    """float32 ``mask / keep``, mask ~ Bernoulli(1 - rate), from ``gen``
+    (a :class:`DrawTape` hands its taped draw instead)."""
+    if isinstance(gen, DrawTape):
+        return gen.draw(shape, rate, device)
     keep = 1.0 - rate
     mask = torch.rand(shape, generator=gen, device=device) < keep
     return mask.float() / keep
+
+
+class DrawTape:
+    """Stands in for the generator of a forward over a batch of ``batch``
+    rows that is computed again in blocks of rows.  Recording, it draws
+    each :func:`keep_multipliers` from ``gen`` and keeps it, in order;
+    after ``replay(start, stop)`` it hands the same draws back in the
+    same order, each sliced on its leading axis to rows ``start:stop``
+    (a leading axis of k x ``batch`` holds each row's k in turn), and
+    draws nothing.  A draw whose leading axis is not a multiple of
+    ``batch`` has no rows to slice and raises."""
+
+    def __init__(self, gen, batch: int):
+        self.gen, self.batch = gen, batch
+        self.draws: list[torch.Tensor] = []
+        self.rows: tuple[int, int] | None = None
+        self.at = 0
+
+    def replay(self, start: int, stop: int) -> "DrawTape":
+        self.rows, self.at = (start, stop), 0
+        return self
+
+    def replayed_all(self) -> bool:
+        return self.at == len(self.draws)
+
+    def draw(self, shape, rate: float, device) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.rows is None:
+            if not shape or shape[0] % self.batch:
+                raise ValueError(
+                    f"a draw of shape {shape} does not lead with the "
+                    f"batch's {self.batch} rows: no block of rows can "
+                    f"replay it")
+            out = keep_multipliers(shape, rate, self.gen, device)
+            self.draws.append(out)
+            return out
+        if self.at == len(self.draws):
+            raise ValueError("a block's forward draws more than the "
+                             "whole batch's did")
+        taped = self.draws[self.at]
+        self.at += 1
+        k = taped.shape[0] // self.batch
+        start, stop = self.rows
+        out = taped[start * k:stop * k]
+        if tuple(out.shape) != shape:
+            raise ValueError(f"a block's forward asks for a draw of shape "
+                             f"{shape}; the tape holds {tuple(out.shape)} "
+                             f"for its rows")
+        return out
 
 
 def maybe_dropout(x, rate: float, training: bool, gen):

@@ -4,11 +4,16 @@
 for the one model key of the block (``KSVQE`` or a Swin-T-3D key), under
 the names of the reference checkpoints, which the program uses too.
 ``TrainStep`` is the reference's step: the forward (its draws from a
-generator seeded as the program seeds its own: ``seed + 1``), 0.3 x
-KSVQE's contrastive loss plus the PLCC loss, the backward, AdamW (b1 0.9,
-b2 0.999, eps 1e-8, decoupled weight decay) under the linear warmup and
-cosine schedule, and the EMA.  KSVQE's CLIP (but for its adapters) and
-CONTRIQUE are frozen and get no gradient.
+generator seeded as the program seeds its own: ``seed + 1``), the loss
+(the PLCC loss, plus ``contra_loss_weight`` x KSVQE's contrastive loss and
+``rank_loss_weight`` x the rank loss), the backward, AdamW (b1 0.9, b2
+0.999, eps 1e-8, decoupled weight decay; the ``*_backbone`` parameters in
+a group of their own at ``lr x backbone_lr_mult`` where that is not 1)
+under the linear warmup and cosine schedule, and the EMA, each as the
+schedule it is given states it.  KSVQE's CLIP (but for its adapters) and
+CONTRIQUE are frozen and get no gradient.  With ``rows`` a batch of more
+rows is computed in blocks of that many, so that its activations fit
+(``TrainStep.step``).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 from torch import nn
 
 from .ksvqe import KSVQE, ksvqe_config
-from .layers import VQAHead
+from .layers import DrawTape, VQAHead
 from .swin import PRESETS, SwinConfig, SwinTransformer3D
 
 FROZEN = (("CLIP_tool", ("adapter",)), ("distortion_tool", ()))
@@ -88,6 +93,15 @@ def plcc_loss(y_pred, y):
     return (loss0 + loss1) / 2
 
 
+def rank_loss(y_pred, y):
+    """FAST-VQA's pairwise rank loss: relu((p - p^T) sign(y^T - y)),
+    summed, over n(n - 1) and over 1 + its largest entry."""
+    y_pred, y = y_pred.reshape(-1, 1), y.reshape(-1, 1)
+    ranking = torch.relu((y_pred - y_pred.T) * torch.sign(y.T - y))
+    n = y_pred.shape[0]
+    return ranking.sum() / n / (n - 1) / (1 + ranking.max())
+
+
 def schedule_factor(step: int, warmup: int, total: int) -> float:
     if warmup > 0 and step <= warmup:
         return step / max(warmup, 1)
@@ -95,50 +109,119 @@ def schedule_factor(step: int, warmup: int, total: int) -> float:
 
 
 class TrainStep:
-    """The reference's train state on ``model`` (float32 parameters)."""
+    """The reference's train state on ``model`` (float32 parameters).
 
-    def __init__(self, model: Network, schedule: dict, seed: int, device):
+    ``schedule`` is the configuration's ``schedule`` with its
+    ``steps_per_epoch``: ``optimizer`` (``lr``, ``wd``, and
+    ``backbone_lr_mult``, 1 by default), ``warmup_epochs``,
+    ``num_epochs``, ``ema_decay``, ``contra_loss_weight`` (0.3 by
+    default) and ``rank_loss_weight`` (0 by default).  ``rows``: compute a
+    batch of more rows in blocks of that many (``step``); a model whose
+    rows are coupled in training (KSVQE's QRS picks and contrastive loss,
+    a BatchNorm on the batch's statistics) cannot be and raises."""
+
+    def __init__(self, model: Network, schedule: dict, seed: int, device,
+                 rows: int | None = None):
         self.model = model.train()
-        self.params = [p for n, p in model.named_parameters()
-                       if not is_frozen(model.key, n)]
+        if rows is not None:
+            if model.key == "KSVQE":
+                raise ValueError("KSVQE's QRS picks and contrastive loss "
+                                 "couple a batch's rows: no row blocks")
+            if any(isinstance(m, nn.modules.batchnorm._BatchNorm)
+                   and m.training for m in model.modules()):
+                raise ValueError("a BatchNorm in train mode couples a "
+                                 "batch's rows: no row blocks")
+        self.rows = rows
+        named = [(n, p) for n, p in model.named_parameters()
+                 if not is_frozen(model.key, n)]
+        self.params = [p for _, p in named]
         for n, p in model.named_parameters():
             p.requires_grad_(not is_frozen(model.key, n))
         opt = schedule["optimizer"]
         spe = int(schedule["steps_per_epoch"])
         self.warmup = int(float(schedule["warmup_epochs"]) * spe)
         self.total = int(float(schedule["num_epochs"]) * spe)
-        self.lr = float(opt["lr"])
+        lr = float(opt["lr"])
+        # the program's rule (train/optim.py:build_optimizer): the
+        # ``*_backbone`` parameters in a group of their own where the
+        # multiplier is not 1
+        mult = float(opt.get("backbone_lr_mult", 1.0))
+        parts = {False: [], True: []}
+        for n, p in named:
+            parts["_backbone" in n and mult != 1.0].append(p)
+        self.base_lr = [lr] + ([lr * mult] if parts[True] else [])
+        factor = schedule_factor(0, self.warmup, self.total)
         self.opt = torch.optim.AdamW(
-            self.params, lr=self.lr * schedule_factor(0, self.warmup,
-                                                      self.total),
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=float(opt["wd"]),
-            foreach=False)
+            [{"params": ps, "lr": base * factor}
+             for ps, base in zip((parts[False], parts[True]), self.base_lr)],
+            betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=float(opt["wd"]), foreach=False)
         self.decay = float(schedule["ema_decay"])
-        self.contra_w = 0.3
+        self.contra_w = float(schedule.get("contra_loss_weight", 0.3))
+        self.rank_w = float(schedule.get("rank_loss_weight", 0.0))
         self.ema = [p.detach().clone() for p in model.parameters()]
         self.gen = torch.Generator(device=device).manual_seed(seed + 1)
         self.steps = 0
 
-    def step(self, batch: dict) -> tuple[float, list]:
-        """One step; returns (loss, the gradients as AdamW gets them) and
-        keeps the backbone's features in ``features``."""
-        feat, dis = self.model.features(batch, self.gen)
-        self.features = feat.detach()
-        scores = self.model.head(feat, self.gen)
-        y = batch["label"].reshape(-1, 1).float()
+    def loss(self, scores, y, dis):
         loss = plcc_loss(scores.float(), y)
         if dis is not None:
             loss = loss + self.contra_w * dis
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        if self.rank_w:
+            loss = loss + self.rank_w * rank_loss(scores.float(), y)
+        return loss
+
+    def step(self, batch: dict) -> tuple[float, list]:
+        """One step; returns (loss, the gradients as AdamW gets them) and
+        keeps the backbone's features in ``features``."""
+        y = batch["label"].reshape(-1, 1).float()
+        if self.rows is not None and self.rows < y.shape[0]:
+            loss = self._in_blocks(batch, y)
+        else:
+            feat, dis = self.model.features(batch, self.gen)
+            self.features = feat.detach()
+            scores = self.model.head(feat, self.gen)
+            loss = self.loss(scores, y, dis)
+            self.opt.zero_grad(set_to_none=True)
+            loss.backward()
         grads = [None if p.grad is None else p.grad.detach().clone()
                  for p in self.params]
         self.opt.step()
         self.steps += 1
-        for g in self.opt.param_groups:
-            g["lr"] = self.lr * schedule_factor(self.steps, self.warmup,
-                                                self.total)
+        factor = schedule_factor(self.steps, self.warmup, self.total)
+        for g, base in zip(self.opt.param_groups, self.base_lr):
+            g["lr"] = base * factor
         with torch.no_grad():
             for e, p in zip(self.ema, self.model.parameters()):
                 e.mul_(self.decay).add_(p, alpha=1.0 - self.decay)
         return float(loss.detach()), grads
+
+    def _in_blocks(self, batch: dict, y) -> torch.Tensor:
+        """The step's loss and gradients with the activations of
+        ``rows`` rows alive at a time: the whole batch's forward without
+        autograd, its draws taped (the generator ends as after a whole
+        step), gives the features, the scores and the loss, and dL/dscores
+        from the loss on the scores alone; then each block's forward with
+        autograd, its draws replayed from the tape, and its backward from
+        its rows of dL/dscores, the gradients adding up.  Each row's score
+        depends on its own row only (no BatchNorm, no coupled draws), so
+        this is the whole step's gradient in another order of sums."""
+        n = y.shape[0]
+        tape = DrawTape(self.gen, n)
+        with torch.no_grad():
+            feat, _ = self.model.features(batch, tape)
+            self.features = feat
+            scores = self.model.head(feat, tape)
+        scores.requires_grad_(True)
+        loss = self.loss(scores, y, None)
+        (d_scores,) = torch.autograd.grad(loss, scores)
+        self.opt.zero_grad(set_to_none=True)
+        for start in range(0, n, self.rows):
+            stop = min(start + self.rows, n)
+            part = {k: v[start:stop] for k, v in batch.items()}
+            got, _ = self.model(part, tape.replay(start, stop))
+            got.backward(d_scores[start:stop])
+            if not tape.replayed_all():
+                raise ValueError("a block's forward draws less than the "
+                                 "whole batch's did")
+        return loss

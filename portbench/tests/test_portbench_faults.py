@@ -9,7 +9,7 @@ import pytest
 from portbench.harness import core, faults
 from portbench.tests.tiny import tiny_spec
 
-TRAIN = ["ksvqe-train", "swin-train"]
+TRAIN = ["ksvqe-train", "swin-train", "swin-train-fast"]
 
 
 def _run(cell):
@@ -53,6 +53,21 @@ def test_score_fault_after_the_backbone(fault, check):
     head produces it: the features hold, the scores do not."""
     with faults.FAULTS[fault]():
         out = _run("ksvqe-score")
+    assert not out["correct"]
+    c = out["checks"][check]
+    assert c["value"] > c["limit"]
+
+
+@pytest.mark.parametrize("fault, check", [("one_learning_rate",
+                                           "change_gap_median"),
+                                          ("rank_dropped", "loss_gap")])
+def test_optimizer_and_loss_as_the_configuration_states(fault, check):
+    """On the cell whose schedule states fast-b.yml's backbone learning
+    rate multiplier (0.1) and rank loss weight (0.3): the backbone trained
+    at the head's learning rate moves ~10x as far as the reference's; the
+    rank loss left out changes every step's loss."""
+    with faults.FAULTS[fault]():
+        out = _run("swin-train-fast")
     assert not out["correct"]
     c = out["checks"][check]
     assert c["value"] > c["limit"]

@@ -9,7 +9,7 @@ import torch
 from portbench.harness import core, entries, inputs
 from portbench.tests.tiny import tiny_spec
 
-CELLS = ["ksvqe-score", "ksvqe-train", "swin-train"]
+CELLS = ["ksvqe-score", "ksvqe-train", "swin-train", "swin-train-fast"]
 # float32 against float32: rounding of another order of operations
 F32 = {"feature_gap": 1e-5, "head_gap": 1e-5, "readback_errors": 0,
        "repeat_gap": 0.0, "score_gap": 1e-5, "cls_attn_gap": 1e-5,
@@ -33,7 +33,8 @@ def test_float32_program_matches_reference(cell):
     assert out["correct"]
 
 
-@pytest.mark.parametrize("cell", ["ksvqe-score", "swin-train"])
+@pytest.mark.parametrize("cell", ["ksvqe-score", "swin-train",
+                                  "swin-train-fast"])
 def test_control_reads_above_bfloat16_program(cell):
     """The control (float8 products) reads higher than the bfloat16
     program on the features, the measure that separates them at full size

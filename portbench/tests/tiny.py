@@ -32,6 +32,20 @@ KSVQE_FIELDS = {
 SWIN = {"name": "tiny-swin", "schedule": None, "steps_per_epoch": 1,
         "limits": {"train": {"feature_gap": 0.04,
                              "change_gap_median": 0.05}}}
+# the same path under fast-b.yml's own optimizer and loss (FAST-VQA's
+# training: a tenth of the head's learning rate on the backbone, 0.3 x the
+# rank loss), its reference step in blocks of two rows
+SWIN_FAST = {"name": "tiny-swin-fast", "steps_per_epoch": 1,
+             "reference_rows": 2,
+             "schedule": {"num_epochs": 30, "l_num_epochs": 0,
+                          "warmup_epochs": 2.5, "ema": True,
+                          "ema_decay": 0.999, "batch_size": 4,
+                          "rank_loss_weight": 0.3,
+                          "optimizer": {"lr": 1e-3, "backbone_lr_mult": 0.1,
+                                        "wd": 0.05}},
+             "limits": {"train": {"feature_gap": 0.04, "loss_gap": 0.03,
+                                  "change_gap_median": 0.05}}}
+SWIN_CONFIGS = {"tiny-swin": SWIN, "tiny-swin-fast": SWIN_FAST}
 SWIN_MIX = {"entry": "train", "batch_size": 4, "pool": 4,
             "fields": {"technical": {"shape": [4, 32, 32, 3],
                                      "law": "normal"},
@@ -47,9 +61,9 @@ def _config(name: str, dtype: str) -> dict:
             "KSVQE": {"backbone": dict(TINY_KSVQE),
                       "head": {"hidden_channels": 16}}}}
     else:
-        cfg = copy.deepcopy(SWIN)
-        cfg["schedule"] = load_json("portbench/configs/ksvqe.json")[
-            "schedule"]
+        cfg = copy.deepcopy(SWIN_CONFIGS[name])
+        cfg["schedule"] = cfg["schedule"] or load_json(
+            "portbench/configs/ksvqe.json")["schedule"]
         cfg["model"] = {"type": "swin_tiny_grpb", "compute_dtype": dtype,
                         "args": {"swin_tiny_grpb": {
                             "backbone": {"checkpoint": True,
@@ -60,10 +74,11 @@ def _config(name: str, dtype: str) -> dict:
 
 
 # (configuration, traffic mix) of each cell the tests run: the benchmark's
-# cells, and a tiny Swin-T-3D train cell of its own
+# cells, and tiny Swin-T-3D train cells of their own
 CELLS = {"ksvqe-score": ("ksvqe", "val-b1-pool8"),
          "ksvqe-train": ("ksvqe", "ksvqe-train-b4-pool4"),
-         "swin-train": ("tiny-swin", None)}
+         "swin-train": ("tiny-swin", None),
+         "swin-train-fast": ("tiny-swin-fast", None)}
 
 
 def tiny_spec(cell: str, dtype: str = "float32") -> dict:
