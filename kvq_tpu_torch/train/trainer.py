@@ -18,9 +18,10 @@ batch's pre-cast (worker thread) and host-to-device copy (side stream)
 with the current step and reads the losses once, after the last step.
 Step s is unit s of the spans (``core/tracing.py``): ``kvq.train.feed``,
 ``kvq.train.cast`` (the bf16 copies of the masters), ``kvq.train.forward``
-(``functional_call`` and ``total_loss``), ``kvq.train.backward``,
-``kvq.train.allreduce`` (data-parallel), ``kvq.train.optimizer`` (AdamW
-and the schedule) and ``kvq.train.ema``.
+(``functional_call`` and ``total_loss``, the latter also as its child
+``kvq.train.loss``: the PLCC, rank and contrastive terms),
+``kvq.train.backward``, ``kvq.train.allreduce`` (data-parallel),
+``kvq.train.optimizer`` (AdamW and the schedule) and ``kvq.train.ema``.
 
 ``evaluate(batches, use_ema)`` scores the raw or the EMA weights through
 the :class:`~kvq_tpu_torch.train.evaluator.Evaluator`; ``train_eval``
@@ -185,9 +186,10 @@ class Trainer:
             out = functional_call(self.model, tensors, (dev,),
                                   {"gen": self.gen})
             scores, dis = out if self.is_ksvqe else (out, None)
-            loss, aux = total_loss(scores, dev["label"], dis,
-                                   self.settings.contra_w,
-                                   self.settings.rank_w)
+            with span("kvq.train.loss"):
+                loss, aux = total_loss(scores, dev["label"], dis,
+                                       self.settings.contra_w,
+                                       self.settings.rank_w)
         with span("kvq.train.backward"):
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()

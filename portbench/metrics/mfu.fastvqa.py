@@ -1,0 +1,5 @@
+"""``mfu.train``'s reading in the cell ``fastvqa-train``."""
+
+from portbench.harness.spec import metric_reader
+
+read = metric_reader("mfu.train")
