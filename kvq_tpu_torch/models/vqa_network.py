@@ -24,9 +24,11 @@ its backbone's ``num_features`` (9472 for ``simpleVQA``);
 by default), fills every parameter from a seeded ``torch.Generator`` and
 casts to the config's ``compute_dtype``.  :func:`build_train_model` keeps
 the master parameters in float32, as flax keeps params f32 under a bf16
-``dtype``; a training forward runs on :func:`compute_tensors`, copies in the
-compute dtype made inside autograd, so that the gradients reach the f32
-masters.  The tensors that stay float32 (:func:`f32_names`) are not
+``dtype``; a training forward runs on copies in the compute dtype:
+:func:`compute_tensors` makes them inside autograd, so that the gradients
+reach the f32 masters (the (data, fsdp) step), and the Trainer keeps one
+persistent copy a master and carries its gradient over
+(``train/trainer.py``).  The tensors that stay float32 (:func:`f32_names`) are not
 copied: a BatchNorm's running statistics are the module's own buffers, and
 its train-mode update lands there.
 """
@@ -182,22 +184,16 @@ def tensor_compute_dtype(name: str, t: torch.Tensor, dtype: torch.dtype,
 
 
 def compute_tensors(model: nn.Module, dtype: torch.dtype,
-                    trainable_only: bool = False,
                     keep: set | None = None) -> dict:
     """name -> the parameter or buffer in the compute dtype, those of
     :func:`f32_names` kept float32 (the casts of ``cast_model``, made out
     of place and differentiable; a tensor already in its dtype is passed
-    as it is), for ``torch.func.functional_call``.  With
-    ``trainable_only``, only the parameters that require a gradient.
-    ``keep``: :func:`f32_names` of ``model``, when the caller holds it."""
+    as it is), for ``torch.func.functional_call``.  ``keep``:
+    :func:`f32_names` of ``model``, when the caller holds it."""
     keep = f32_names(model) if keep is None else keep
     out = {}
-    for name, p in model.named_parameters():
-        if p.requires_grad or not trainable_only:
-            out[name] = p.to(tensor_compute_dtype(name, p, dtype, keep))
-    if not trainable_only:
-        for name, b in model.named_buffers():
-            out[name] = b.to(tensor_compute_dtype(name, b, dtype, keep))
+    for name, t in (*model.named_parameters(), *model.named_buffers()):
+        out[name] = t.to(tensor_compute_dtype(name, t, dtype, keep))
     return out
 
 

@@ -26,7 +26,9 @@ masks.  The distortion tool sees the selected frames detached, and CONTRIQUE
 keeps eval semantics (frozen BatchNorm), as in the JAX package.
 
 An eval forward on the card without autograd replays its two halves, split
-at QRS's pick, as CUDA graphs (``nn/eval_graphs.py``).
+at QRS's pick, as CUDA graphs (``nn/eval_graphs.py``); a training forward
+on the card under autograd replays each half as a forward and a backward
+graph (``nn/train_graphs.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from .cdm import AdapterMLP, CrossAttention, DistFiLM, SemanticFiLM, TemporalAtt
 from .clip_vit import CLIPVisionTower
 from .contrique import CONTRIQUE
 from .eval_graphs import EvalGraphs
+from .train_graphs import TrainGraphs
 from .layers import LayerNorm, PatchEmbed3D
 from .regionnet import (
     RegionSelector,
@@ -171,6 +174,7 @@ class KSVQE(nn.Module):
         self.a1 = nn.Parameter(torch.full((n_mod, 1), float(cfg.a1)))
         self.a2 = nn.Parameter(torch.full((n_mod, 1), float(cfg.a2)))
         self._graphs = EvalGraphs()
+        self._train_graphs = TrainGraphs()
 
     def _frames(self, fragment) -> int:
         """The frames of a fragment, (B, T, H, W, C) or s2d-packed
@@ -223,10 +227,17 @@ class KSVQE(nn.Module):
         The forward is three calls: :meth:`semantic_segment`, QRS's pick
         (:meth:`pick`) and :meth:`trunk_segment`.  An eval forward on the
         card without autograd replays the two segments as CUDA graphs
-        (:mod:`.eval_graphs`), the pick running eagerly between them; every
-        other forward makes the three calls eagerly."""
+        (:mod:`.eval_graphs`), the pick running eagerly between them; so
+        does a training forward on the card under autograd, each segment's
+        backward a graph too (:mod:`.train_graphs`), once its tensors have
+        been seen twice; every other forward makes the three calls
+        eagerly."""
         if self._graphs.engages(self, batch):
             return self._graphs(self, batch)
+        if self._train_graphs.engages(self, batch):
+            out = self._train_graphs(self, batch, gen)
+            if out is not None:  # None: no capture holds or may be made yet
+                return out
         fragment, cls_attn, pat_tokens = self.semantic_segment(
             batch["fragment"], batch["resize_video"])
         sel = self.pick(cls_attn, fragment, gen)
@@ -254,25 +265,51 @@ class KSVQE(nn.Module):
         return (fragment, cls_attn.reshape(B, n_key, L),
                 pat_tokens.reshape(B, n_key, L, -1))
 
+    def _anchor_grid(self, fragment) -> tuple[int, int]:
+        """The anchor grid of ``fragment`` (as :meth:`semantic_segment`
+        returns it)."""
+        anchor = self.selector.anchor
+        if self.config.s2d_input:
+            anchor //= self.config.patch_size[1]
+        return fragment.shape[2] // anchor, fragment.shape[3] // anchor
+
     def pick(self, cls_attn, fragment, gen=None):
         """QRS's pick (``RegionSelector.select``) on the anchor grid of
         ``fragment`` (as :meth:`semantic_segment` returns it): region
         indices (B, T) at eval, soft weights (B, T, regions) in training,
         drawn from ``gen``."""
         _, group_id = keyframe_schedule(self._frames(fragment))
-        anchor = self.selector.anchor
-        if self.config.s2d_input:
-            anchor //= self.config.patch_size[1]
-        grid_hw = (fragment.shape[2] // anchor, fragment.shape[3] // anchor)
-        return self.selector.select(cls_attn, group_id, grid_hw,
+        return self.selector.select(cls_attn, group_id,
+                                    self._anchor_grid(fragment),
                                     self.training, gen)
 
-    def trunk_segment(self, fragment, sel, pat_tokens, dis_label, gen=None):
+    def pick_stand_in(self, cls_attn, fragment):
+        """What a training :meth:`pick` returns, with no draw: region 0 of
+        every frame as a one-hot (B, T, regions) in ``cls_attn``'s dtype,
+        a leaf that needs a gradient."""
+        n = self.selector.n_regions(self._anchor_grid(fragment))
+        sel = torch.zeros((fragment.shape[0], self._frames(fragment), n),
+                          dtype=cls_attn.dtype, device=cls_attn.device)
+        sel[..., 0] = 1
+        return sel.requires_grad_()
+
+    def drop_path_draws(self, batch: int, gen, device) -> list:
+        """Every Swin block's DropPath multipliers (``(dp1, dp2)``, each
+        None where nothing drops), stage by stage and block by block, drawn
+        from ``gen`` as :meth:`trunk_segment` draws them when it is given
+        none."""
+        return [[blk.drop_path_multipliers(batch, gen, device)
+                 for blk in stage.blocks] for stage in self.layers]
+
+    def trunk_segment(self, fragment, sel, pat_tokens, dis_label, gen=None,
+                      dps=None):
         """The forward from QRS's pick ``sel`` on: the picked regions and
         the patch embed, CONTRIQUE and the distortion adapter, the
         contrastive loss, the Swin stages with CDM after each stage from
-        ``tuning_stage``, and the final norm.  Returns (features,
-        the contrastive loss)."""
+        ``tuning_stage``, and the final norm.  ``dps``: the blocks'
+        DropPath multipliers (:meth:`drop_path_draws`), drawn from ``gen``
+        block by block when None.  Returns (features, the contrastive
+        loss)."""
         cfg = self.config
         keyframes, group_id = keyframe_schedule(self._frames(fragment))
         n_key = len(keyframes)
@@ -303,7 +340,7 @@ class KSVQE(nn.Module):
 
         ts = cfg.tuning_stage
         for l, stage in enumerate(self.layers):
-            x = stage(x, gen)
+            x = stage(x, gen, None if dps is None else dps[l])
             if l < ts:
                 continue
             m = l - ts

@@ -140,6 +140,13 @@ class RegionSelector:
         ind = self.indicator(scores, self.draw(scores, gen))
         return ind.reshape(B, n_key, -1)[:, gid]
 
+    def n_regions(self, grid_hw) -> int:
+        """The candidate regions on an anchor grid (what
+        :func:`region_scores` scores)."""
+        nh, nw = (len(range(0, g - self.k_side + 1, self.stride))
+                  for g in grid_hw)
+        return nh * nw
+
     def draw(self, scores, gen):
         """The training draw of the sample type, from ``gen``: standard
         normal noise (b, num_samples, d) for perturbed top-k, uniform

@@ -372,11 +372,14 @@ class BasicLayer(nn.Module):
         self.downsample = PatchMerging(dim) if downsample else None
         self.use_checkpoint = use_checkpoint
 
-    def forward(self, x, gen=None):
+    def forward(self, x, gen=None, dps=None):
+        """``dps``: each block's DropPath multipliers, drawn from ``gen``
+        block by block when None."""
         remat = (self.use_checkpoint and self.training
                  and torch.is_grad_enabled())
-        for blk in self.blocks:
-            dp = blk.drop_path_multipliers(x.shape[0], gen, x.device)
+        for i, blk in enumerate(self.blocks):
+            dp = (blk.drop_path_multipliers(x.shape[0], gen, x.device)
+                  if dps is None else dps[i])
             x = (_rematerialised(blk, x, dp, gen) if remat
                  else blk(x, gen, dp=dp))
         if self.downsample is not None:

@@ -13,11 +13,14 @@ on pad-free Swin blocks, K5 around the plain LayerNorm/MLP on padded ones,
 the plain CDM), ``total_loss`` (KSVQE adds its contrastive distortion
 loss), the backward, the AdamW and schedule steps, the EMA update and
 ``step + 1``; it returns the loss terms as floats, the only point where
-the host waits for the card.  ``train_epoch(batches)`` overlaps the next
-batch's pre-cast (worker thread) and host-to-device copy (side stream)
-with the current step and reads the losses once, after the last step.
-Step s is unit s of the spans (``core/tracing.py``): ``kvq.train.feed``,
-``kvq.train.cast`` (the bf16 copies of the masters), ``kvq.train.forward``
+the host waits for the card.  On the card KSVQE's forward and backward
+replay CUDA graphs from the second step on (``nn/train_graphs.py``), which
+read the persistent compute copies that ``_compute_tensors`` refreshes
+every step.  ``train_epoch(batches)`` overlaps the next batch's pre-cast
+(worker thread) and host-to-device copy (side stream) with the current
+step and reads the losses once, after the last step.  Step s is unit s of
+the spans (``core/tracing.py``): ``kvq.train.feed``, ``kvq.train.cast``
+(the masters into their persistent bf16 copies), ``kvq.train.forward``
 (``functional_call`` and ``total_loss``, the latter also as its child
 ``kvq.train.loss``: the PLCC, rank and contrastive terms),
 ``kvq.train.backward``, ``kvq.train.allreduce`` (data-parallel),
@@ -90,6 +93,7 @@ from ..models.vqa_network import (
     compute_dtype,
     compute_tensors,
     f32_names,
+    tensor_compute_dtype,
 )
 from ..nn.resnet import sync_batchnorm
 from ..parallel.mesh import rank, world
@@ -147,6 +151,7 @@ class Trainer:
         self.last_losses: dict[str, float] = {}  # of train_eval's epoch
         self.gen = step_generator(self.device, seed, self.rank)
         self._frozen = None
+        self._copies = None
         self._evaluator = None
         self.logger = MetricLogger(log_dir, str(cfg.get("name", "train")))
         if self.ddp:
@@ -158,16 +163,54 @@ class Trainer:
         """The forward's parameters and buffers in the compute dtype.  The
         frozen ones never change, so their casts are made once; the float32
         buffers (BatchNorm's running statistics) are the module's own, so
-        a train-mode forward updates them in place, once a step."""
+        a train-mode forward updates them in place, once a step.  Each
+        trainable master has one compute copy, a leaf that needs a
+        gradient (the master itself where it stays float32), refreshed
+        here in place: a step's tensors are the same objects at the same
+        addresses every step, as a CUDA graph of the step reads them
+        (``nn/train_graphs.py``)."""
         if self._frozen is None:
             self._keep = f32_names(self.model)
-            trainable = {n for n, p in self.model.named_parameters()
+            trainable = {n: p for n, p in self.model.named_parameters()
                          if p.requires_grad}
+            if self._copies is None:
+                self._copies = {}
+                for n, p in trainable.items():
+                    dt = tensor_compute_dtype(n, p, self.dtype, self._keep)
+                    self._copies[n] = p if dt == p.dtype else torch.empty_like(
+                        p, dtype=dt, requires_grad=True)
+                self._cast = [(p, self._copies[n])
+                              for n, p in trainable.items()
+                              if self._copies[n] is not p]
+                self._grads = [torch.empty_like(p) for p, _ in self._cast]
             self._frozen = {n: t for n, t in compute_tensors(
                 self.model, self.dtype, keep=self._keep).items()
                 if n not in trainable}
-        return {**self._frozen, **compute_tensors(
-            self.model, self.dtype, trainable_only=True, keep=self._keep)}
+        if self._cast:
+            with torch.no_grad():
+                torch._foreach_copy_([c for _, c in self._cast],
+                                     [p for p, _ in self._cast])
+        return {**self._frozen, **self._copies}
+
+    def _zero_grad(self) -> None:
+        """Every master's and compute copy's ``.grad`` to None."""
+        self.optimizer.zero_grad(set_to_none=True)
+        for _, c in self._cast:
+            c.grad = None
+
+    def _carry_gradients(self) -> None:
+        """The compute copies' gradients into their masters' ``.grad`` in
+        float32 by one foreach copy (exact: the values the cast's backward
+        gave), the copies' then dropped; a copy with no gradient leaves
+        its master's None."""
+        live = [i for i, (_, c) in enumerate(self._cast)
+                if c.grad is not None]
+        if live:
+            torch._foreach_copy_([self._grads[i] for i in live],
+                                 [self._cast[i][1].grad for i in live])
+        for i in live:
+            p, c = self._cast[i]
+            p.grad, c.grad = self._grads[i], None
 
     def _step(self, dev: dict) -> dict:
         """One train step on a device-resident batch; returns the loss
@@ -191,8 +234,9 @@ class Trainer:
                                        self.settings.contra_w,
                                        self.settings.rank_w)
         with span("kvq.train.backward"):
-            self.optimizer.zero_grad(set_to_none=True)
+            self._zero_grad()
             loss.backward()
+            self._carry_gradients()
         if self.ddp:
             with span("kvq.train.allreduce"):
                 reduce_gradients(self.params)
