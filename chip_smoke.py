@@ -171,6 +171,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+try:  # imports no torch; main() reports a package not beside this script
+    from kvq_tpu_torch.ops.launches import NAMES as KERNELS  # noqa: E402
+except ImportError:
+    KERNELS = ()
 
 # H100 SXM published dense peaks (NVIDIA H100 datasheet)
 PEAK_BF16_FLOPS = 989e12
@@ -1547,29 +1551,13 @@ def make_train_batch(rng, i: int) -> dict:
 
 
 def _counted():
-    """Every kernel wrapper of the port, by name."""
-    from kvq_tpu_torch.ops import train_attention as TA
-    from kvq_tpu_torch.ops import window_attention as WA
+    """Every kernel wrapper of the port, by name (``ops/launches.py``)."""
+    from kvq_tpu_torch.ops import launches
 
-    return {"fused_swin_block": WA.fused_swin_block,
-            "flash_attention_nobias_cl": WA.flash_attention_nobias_cl,
-            "flash_window_attention_packed":
-                WA.flash_window_attention_packed,
-            "flash_window_attention": WA.flash_window_attention,
-            "flash_attention_nobias": WA.flash_attention_nobias,
-            "train_swin_block": TA.train_swin_block,
-            "train_swin_block_bwd": TA.train_swin_block_bwd,
-            "window_attention_train": TA.window_attention_train,
-            "window_attention_train_bwd": TA.window_attention_train_bwd}
+    return {fn.__name__: fn for fn in launches.wrappers()}
 
 
-NO_LAUNCHES = {
-    "fused_swin_block": 0, "flash_attention_nobias_cl": 0,
-    "flash_window_attention_packed": 0, "flash_window_attention": 0,
-    "flash_attention_nobias": 0, "train_swin_block": 0,
-    "train_swin_block_bwd": 0, "window_attention_train": 0,
-    "window_attention_train_bwd": 0,
-}
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def kernel_counts() -> dict:

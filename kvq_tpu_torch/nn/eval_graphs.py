@@ -1,61 +1,47 @@
-"""KSVQE's eval forward replayed as two CUDA graphs, split at QRS's pick.
+"""KSVQE's forward replayed as CUDA graphs split at QRS's pick: the mechanism
+and the eval capture.
 
-An eval forward of KSVQE launches ~1,500 kernels one by one from Python,
-and on the card the host's launches take about twice the card's own time.
-:class:`EvalGraphs` captures the forward's two segments once, as CUDA graphs
-in one private memory pool, and replays them on every later forward: the
-same kernels in the same order, launched by the graph instead of the host.
+A KSVQE forward launches ~1,500 kernels from Python (a train step ~4,600),
+which take the host longer than the card takes to run them.  A
+:class:`Graphs` cache captures the forward's segments once per input
+signature (each field's shape, strides, dtype and device) as CUDA graphs in
+one private pool, and replays them on every later forward:
 
-- ``KSVQE.semantic_segment`` (graph A): the casts, the keyframes and CLIP;
-- ``KSVQE.pick`` (eager): QRS's pick, ``RegionSelector.select``, on a copy
-  of A's cls-attention, copied into B's input;
-- ``KSVQE.trunk_segment`` (graph B): the picked regions and the patch
-  embed, CONTRIQUE, the contrastive loss, the Swin stages with K1, CDM with
-  K2 and the final norm; the backbone returns copies of its features and
-  loss.
+- graph A, ``KSVQE.semantic_segment``: the casts, the keyframes and CLIP;
+- ``KSVQE.pick`` (eager): QRS's ``RegionSelector.select`` on a copy of A's
+  cls-attention;
+- graph B, ``KSVQE.trunk_segment``: the picked regions, the patch embed,
+  CONTRIQUE, the contrastive loss, the Swin stages, CDM and the final norm;
+  the forward returns copies of its features and loss, so hooks and a
+  patched ``select`` see fresh tensors of each forward, as eagerly.
 
-So what a caller observes inside a forward (the model's and the head's
-hooks, a patched ``select``) are calls on fresh tensors of that forward, as
-in the eager forward.
-
-:meth:`EvalGraphs.engages` decides from what it can observe: an eval module
-(not ``training``) under no autograd, CUDA input and no contrastive group
-(the loss of this forward's own rows, no collective); anything else runs the
-eager forward.  A capture holds one input signature (each field's shape,
-strides, dtype and device) and reads the module's parameters and buffers at
-their addresses: weights loaded in place (``load_state_dict``) are read by
-the next replay, and a tensor replaced (``load_state_dict(assign=True)``,
-``.to()``) drops the captures, so that the next forward captures anew.
-
-A module's captures share one memory pool.  A forward replays its own two
-graphs back to back and keeps nothing in the pool past its end (the
-outputs are copied out), so a capture may reuse what another capture's
-graphs use in between: each new signature adds its static tensors to the
-pool, not a second set of intermediates.  The device constants the segments
-read are the port's cached ones (``core/device.py:index_tensor``,
-``ops/window_attention.py:_token_ids_on`` and the like), made once and kept
-for the process: a graph never reads memory freed under it.
-
-The kernel wrappers' ``launches`` count the calls of the module's forwards,
-as eagerly: a capture's calls (its eager warm-up, whose result is dropped,
-and the capture itself) are taken back out, and each replay adds the calls
-its segment captured.  Each graphed forward is one ``kvq.graph.replay`` span
-(``core/tracing.py``; attrs ``segments=2``).
+A capture kind says what its graphs are and how a forward runs them
+(:class:`EvalCapture`, ``train_graphs.TrainCapture``); :func:`engages` picks
+the kind.  A capture reads the module's parameters and buffers at their
+addresses: ``load_state_dict`` in place reaches the next replay; a tensor
+replaced (``assign=True``, ``.to()``) drops the captures and the next
+forward captures anew.  A cache's captures share its pool, opened anew once
+all were dropped; each kind has its own cache, so eval and train graphs
+never share a pool.  The device constants the segments read
+(``core/device.py:index_tensor``, ``ops/window_attention.py:_token_ids_on``
+and the like) are cached for the process: no graph reads memory freed under
+it.  The wrappers' ``launches`` (``ops/launches.py``) count as eagerly: a
+capture's own calls are taken back out, each replay adds its graph's.  Each
+graphed forward is one span (``core/tracing.py``; attrs ``segments=2``):
+``kvq.graph.replay`` at eval, ``kvq.train.replay`` in training.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..core.tracing import span
-from ..ops import window_attention as wa
+from ..ops import launches
 
 _ENABLED = True  # False runs every forward eagerly (the card tests' baseline)
 FIELDS = ("fragment", "resize_video", "dis_label")  # what the backbone reads
-# the eval kernels' wrappers, whose ``launches`` the replays keep counting
-COUNTED = (wa.fused_swin_block, wa.flash_attention_nobias_cl,
-           wa.flash_window_attention_packed, wa.flash_window_attention,
-           wa.flash_attention_nobias)
 
 
 def signature(batch) -> tuple:
@@ -65,63 +51,83 @@ def signature(batch) -> tuple:
                  for t in (batch[k] for k in FIELDS))
 
 
-def _launches() -> list[int]:
-    return [f.launches for f in COUNTED]
+def tensors(module) -> list:
+    """(owner dict, name, tensor) of every parameter and buffer."""
+    return [(owner, name, t) for m in module.modules()
+            for owner in (m._parameters, m._buffers)
+            for name, t in owner.items() if t is not None]
 
 
-class EvalGraphs:
-    """A KSVQE module's captures, one per input signature."""
+def engages(net, batch) -> str | None:
+    """The graphs ``net``'s forward on ``batch`` replays: "eval" (an eval
+    module, no autograd) or "train" (training under autograd, no module with
+    a ``process_group``: no collective), on CUDA input with no contrastive
+    group (the loss of this forward's own rows); None: it runs eagerly."""
+    if not (_ENABLED and net.contrastive_group is None
+            and batch["fragment"].is_cuda):
+        return None
+    if not net.training and not torch.is_grad_enabled():
+        return "eval"
+    if net.training and torch.is_grad_enabled() and not any(
+            getattr(m, "process_group", None) is not None
+            for m in net.modules()):
+        return "train"
+    return None
 
-    def __init__(self):
+
+class Graphs:
+    """A KSVQE module's captures of one kind, one per input signature."""
+
+    def __init__(self, kind):
+        self.kind = kind  # a Capture subclass
         self._captures: dict = {}
         self._pool = None  # the captures' memory pool
 
-    @staticmethod
-    def engages(net, batch) -> bool:
-        """Whether ``net``'s forward on ``batch`` replays graphs."""
-        return (_ENABLED and not net.training
-                and not torch.is_grad_enabled()
-                and net.contrastive_group is None
-                and batch["fragment"].is_cuda)
-
-    def capture_for(self, net, batch) -> "Capture":
-        """The capture for ``batch``'s signature, made now if there is none
-        or if ``net``'s tensors have moved since (which drops every capture
-        that reads them)."""
+    def capture_for(self, net, batch) -> "Capture | None":
+        """The capture for ``batch``'s signature: the one that holds, else
+        one made now where the kind admits it (which drops every capture
+        whose tensors have moved), else None."""
         sig = signature(batch)
         cap = self._captures.get(sig)
         if cap is not None and cap.holds():
             return cap
         self._captures = {k: c for k, c in self._captures.items()
                           if c.holds()}
+        if not self.kind.admits(net):
+            return None
         if not self._captures:  # a new pool, the old one's graphs gone
             self._pool = torch.cuda.graph_pool_handle()
-        self._captures[sig] = cap = Capture(net, batch, self._pool)
+        self._captures[sig] = cap = self.kind(net, batch, self._pool)
         return cap
 
-    def __call__(self, net, batch):
+    def __call__(self, net, batch, gen=None):
+        """The graphed forward, or None where it does not replay."""
         with torch.cuda.device(batch["fragment"].device):
             cap = self.capture_for(net, batch)
-            with span("kvq.graph.replay", segments=2):
-                return cap.replay(net, batch)
+            if cap is None:
+                return None
+            with span(self.kind.SPAN, segments=2):
+                return cap.run(net, batch, gen)
 
 
 class Capture:
-    """One signature's two graphs, their static inputs and outputs, and the
-    module's tensors they read."""
+    """One signature's graphs, their static inputs, and the module's tensors
+    they read.  A kind makes its graphs in ``_capture`` (by
+    :meth:`_record` of its ``_segments``) and replays them in ``run``."""
 
     def __init__(self, net, batch, pool):
         self.tensors = [(owner, name, t, t.data_ptr())
-                        for m in net.modules()
-                        for owner in (m._parameters, m._buffers)
-                        for name, t in owner.items() if t is not None]
-        self.inputs = {}
-        for k in FIELDS:
-            t = batch[k]
-            self.inputs[k] = torch.empty_strided(
-                t.shape, t.stride(), dtype=t.dtype, device=t.device)
-            self.inputs[k].copy_(t)
+                        for owner, name, t in tensors(net)]
+        self.inputs = {k: torch.empty_strided(
+            batch[k].shape, batch[k].stride(), dtype=batch[k].dtype,
+            device=batch[k].device) for k in FIELDS}
+        self.stage(batch)
         self._capture(net, pool)
+
+    @classmethod
+    def admits(cls, net) -> bool:
+        """Whether a capture may be made now, where none holds."""
+        return True
 
     def holds(self) -> bool:
         """Whether the module still holds the tensors captured, at their
@@ -129,60 +135,79 @@ class Capture:
         return all(owner.get(name) is t and t.data_ptr() == ptr
                    for owner, name, t, ptr in self.tensors)
 
-    def _capture(self, net, pool):
-        """Warm both segments up eagerly on a side stream (lazy state: the
-        kernels' builds and attributes, the libraries' handles, the cached
-        constants), then capture each into ``pool``.  The pick is a
-        region index per frame, (B, T) int64 at eval; region 0 stands in
-        for it while warming up and capturing."""
-        x = self.inputs
-        dev = x["fragment"].device
-        self.pick = torch.zeros((x["fragment"].shape[0],
-                                 net._frames(x["fragment"])),
-                                dtype=torch.int64, device=dev)
-        start = _launches()
+    def _record(self, net, pool, n):
+        """``_segments`` warmed up eagerly on a side stream (the kernels'
+        builds, the libraries' handles, the cached constants), the module's
+        buffers put back as they were, then its ``n`` phases captured into
+        graphs of ``pool``; ``self.counts`` keeps each graph's own calls,
+        the launch counts as they were.  Returns the capture's."""
+        dev = self.inputs["fragment"].device
+        buffers = [(b, b.clone()) for b in net.buffers()]
+        marks, start = [], launches.snapshot()
+        self.graphs = [torch.cuda.CUDAGraph() for _ in range(n)]
+
+        def phase(i):
+            marks.append(launches.snapshot())
+            # thread_local: other threads (the Evaluator's or the Trainer's
+            # worker, pinning host memory) may call into CUDA meanwhile
+            return torch.cuda.graph(self.graphs[i], pool=pool,
+                                    capture_error_mode="thread_local")
         try:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                fragment, _, pat = net.semantic_segment(x["fragment"],
-                                                        x["resize_video"])
-                net.trunk_segment(fragment, self.pick, pat, x["dis_label"])
-                del fragment, pat
+                self._segments(net, lambda i: contextlib.nullcontext())
             torch.cuda.current_stream(dev).wait_stream(side)
-            self.a, self.b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-            before = _launches()
-            # thread_local: other threads (the Evaluator's worker, pinning
-            # host memory) may call into CUDA while this one captures
-            with torch.cuda.graph(self.a, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self.fragment, self.cls_attn, self.pat = \
-                    net.semantic_segment(x["fragment"], x["resize_video"])
-            mid = _launches()
-            with torch.cuda.graph(self.b, pool=pool,
-                                  capture_error_mode="thread_local"):
-                self.features, self.loss = net.trunk_segment(
-                    self.fragment, self.pick, self.pat, x["dis_label"])
-            after = _launches()
+            with torch.no_grad():
+                for b, v in buffers:
+                    b.copy_(v)
+            out = self._segments(net, phase)
+            marks.append(launches.snapshot())
         finally:
-            for f, n in zip(COUNTED, start):
-                f.launches = n
-        self.counts_a = [m - b for m, b in zip(mid, before)]
-        self.counts_b = [a - m for a, m in zip(after, mid)]
+            launches.restore(start)
+        self.counts = [launches.diff(a, b) for a, b in zip(marks, marks[1:])]
+        return out
 
-    def replay(self, net, batch):
-        """One forward: ``batch`` into the static inputs, graph A, the pick
-        on a copy of A's cls-attention, graph B; copies of B's outputs."""
+    def replay(self, i) -> None:
+        """Graph ``i``, its captured calls counted."""
+        self.graphs[i].replay()
+        launches.add(self.counts[i])
+
+    def stage(self, batch) -> None:
+        """``batch`` into the static inputs."""
         for k, t in self.inputs.items():
             t.copy_(batch[k])
-        self.a.replay()
-        _count(self.counts_a)
+
+
+class EvalCapture(Capture):
+    """An eval forward's two graphs, A and B, and the pick between them."""
+
+    SPAN = "kvq.graph.replay"
+
+    def _capture(self, net, pool):
+        """The pick is a region index per frame, (B, T) int64 at eval;
+        region 0 stands in for it while warming up and capturing."""
+        f = self.inputs["fragment"]
+        self.pick = torch.zeros((f.shape[0], net._frames(f)),
+                                dtype=torch.int64, device=f.device)
+        (self.fragment, self.cls_attn, self.pat, self.features,
+         self.loss) = self._record(net, pool, 2)
+
+    def _segments(self, net, phase):
+        x = self.inputs
+        with phase(0):
+            frag, cls_attn, pat = net.semantic_segment(x["fragment"],
+                                                       x["resize_video"])
+        with phase(1):
+            features, loss = net.trunk_segment(frag, self.pick, pat,
+                                               x["dis_label"])
+        return frag, cls_attn, pat, features, loss
+
+    def run(self, net, batch, gen=None):
+        """One forward: ``batch`` into the static inputs, graph A, the pick
+        on a copy of A's cls-attention, graph B; copies of B's outputs."""
+        self.stage(batch)
+        self.replay(0)
         self.pick.copy_(net.pick(self.cls_attn.clone(), self.fragment))
-        self.b.replay()
-        _count(self.counts_b)
+        self.replay(1)
         return self.features.clone(), self.loss.clone()
-
-
-def _count(counts) -> None:
-    for f, n in zip(COUNTED, counts):
-        f.launches += n

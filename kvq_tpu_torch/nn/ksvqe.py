@@ -28,7 +28,7 @@ keeps eval semantics (frozen BatchNorm), as in the JAX package.
 An eval forward on the card without autograd replays its two halves, split
 at QRS's pick, as CUDA graphs (``nn/eval_graphs.py``); a training forward
 on the card under autograd replays each half as a forward and a backward
-graph (``nn/train_graphs.py``).
+graph (the train capture, ``nn/train_graphs.py``).
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ from ..train.losses import distortion_contrastive_supervised
 from .cdm import AdapterMLP, CrossAttention, DistFiLM, SemanticFiLM, TemporalAttention
 from .clip_vit import CLIPVisionTower
 from .contrique import CONTRIQUE
-from .eval_graphs import EvalGraphs
-from .train_graphs import TrainGraphs
+from .eval_graphs import EvalCapture, Graphs, engages
+from .train_graphs import TrainCapture
 from .layers import LayerNorm, PatchEmbed3D
 from .regionnet import (
     RegionSelector,
@@ -173,8 +173,8 @@ class KSVQE(nn.Module):
         n_mod = n_stages - cfg.tuning_stage
         self.a1 = nn.Parameter(torch.full((n_mod, 1), float(cfg.a1)))
         self.a2 = nn.Parameter(torch.full((n_mod, 1), float(cfg.a2)))
-        self._graphs = EvalGraphs()
-        self._train_graphs = TrainGraphs()
+        self._graphs = {"eval": Graphs(EvalCapture),
+                        "train": Graphs(TrainCapture)}
 
     def _frames(self, fragment) -> int:
         """The frames of a fragment, (B, T, H, W, C) or s2d-packed
@@ -232,10 +232,9 @@ class KSVQE(nn.Module):
         backward a graph too (:mod:`.train_graphs`), once its tensors have
         been seen twice; every other forward makes the three calls
         eagerly."""
-        if self._graphs.engages(self, batch):
-            return self._graphs(self, batch)
-        if self._train_graphs.engages(self, batch):
-            out = self._train_graphs(self, batch, gen)
+        kind = engages(self, batch)
+        if kind is not None:
+            out = self._graphs[kind](self, batch, gen)
             if out is not None:  # None: no capture holds or may be made yet
                 return out
         fragment, cls_attn, pat_tokens = self.semantic_segment(

@@ -6,7 +6,8 @@ Parameter names follow the PyTorch reference checkpoints (``weight``,
 LayerNorm: the JAX package uses flax's LayerNorm, whose epsilon is 1e-6 and
 whose variance is ``mean(x^2) - mean(x)^2`` in float32; torch's default
 epsilon is 1e-5.  :func:`layer_norm` reproduces flax's formula with eps
-1e-6 everywhere the JAX package relies on flax's default.
+1e-6 everywhere the JAX package relies on flax's default; it lives in
+``ops/window_attention.py``, beside the kernels' plain versions that read it.
 """
 
 from __future__ import annotations
@@ -17,18 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LN_EPS = 1e-6  # flax.linen.LayerNorm default
-
-
-def layer_norm(x, weight, bias, eps: float = LN_EPS):
-    """flax LayerNorm over the last axis: float32 statistics, fast
-    variance, output in x's dtype."""
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    mu2 = (xf * xf).mean(-1, keepdim=True)
-    var = (mu2 - mu * mu).clamp_min(0.0)
-    y = (xf - mu) * (torch.rsqrt(var + eps) * weight.float())
-    return (y + bias.float()).to(x.dtype)
+from ..ops.window_attention import LN_EPS, layer_norm
 
 
 def conv_channels_last(conv, x):

@@ -34,11 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from ..core.tracing import span
-from ..nn.layers import LN_EPS, layer_norm
 from . import build
 from . import gemm as gemm_ops
+from . import launches
 from .gemm import gelu_grad
 from .window_attention import (
+    LN_EPS,
     _BLOCK_KEYS,
     _branch,
     _check_cuda,
@@ -53,6 +54,7 @@ from .window_attention import (
     flash_window_attention_plain,
     fused_swin_block_plain,
     gate_and_mask,
+    layer_norm,
 )
 
 # ---------------------------------------------------------------------------
@@ -253,6 +255,7 @@ def _attention_bwd_cuda(q, k, v, out, dout, lse, rel_bias, frag_bias, geo,
     ), "window attention backward")
 
 
+@launches.counted
 @span("kvq.k5.bwd")
 def window_attention_train_bwd(q, k, v, rel_bias, frag_bias, geo, scale,
                                out, lse, dout):
@@ -296,6 +299,7 @@ class _WindowAttentionTrain(torch.autograd.Function):
             None if frag is None else dfrag.to(frag.dtype)), None, None
 
 
+@launches.counted
 def window_attention_train(q, k, v, rel_bias, frag_bias, geo, scale=None):
     """K5.  q/k/v: (BW, h, N, hd); rel/frag: (h, N, N) float32 planes (frag
     None without a fragment bias).  Returns (BW, h, N, hd); differentiable
@@ -303,10 +307,6 @@ def window_attention_train(q, k, v, rel_bias, frag_bias, geo, scale=None):
     scale = geo.head_dim ** -0.5 if scale is None else float(scale)
     return _WindowAttentionTrain.apply(q, k, v, rel_bias, frag_bias, geo,
                                        scale)
-
-
-window_attention_train.launches = 0
-window_attention_train_bwd.launches = 0
 
 
 def _dp(dp, BW, device):
@@ -336,6 +336,7 @@ def train_swin_block_fwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
     return out
 
 
+@launches.counted
 @span("kvq.k4.bwd")
 def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
                          dp2, dout):
@@ -462,6 +463,7 @@ class _TrainSwinBlock(torch.autograd.Function):
                 None, None, None, None, *dw)
 
 
+@launches.counted
 def train_swin_block(x, params, rel_bias, frag_bias, geo, dp1, dp2,
                      scale=None):
     """K4.  x: (BW, N, C) partitioned, rolled tokens; params under K1's keys
@@ -481,7 +483,3 @@ def train_swin_block(x, params, rel_bias, frag_bias, geo, dp1, dp2,
     dp1, dp2 = _dp(dp1, BW, x.device), _dp(dp2, BW, x.device)
     return _TrainSwinBlock.apply(x, rel_bias, frag_bias, dp1, dp2, geo,
                                  scale, *(params[k] for k in _BLOCK_KEYS))
-
-
-train_swin_block.launches = 0
-train_swin_block_bwd.launches = 0

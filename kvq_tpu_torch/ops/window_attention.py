@@ -46,9 +46,22 @@ import torch
 import torch.nn.functional as F
 
 from ..core.tracing import span
-from ..nn.layers import LN_EPS, layer_norm
 from . import build
 from . import gemm as gemm_ops
+from . import launches
+
+LN_EPS = 1e-6  # flax.linen.LayerNorm default
+
+
+def layer_norm(x, weight, bias, eps: float = LN_EPS):
+    """flax LayerNorm over the last axis: float32 statistics, fast
+    variance, output in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    mu2 = (xf * xf).mean(-1, keepdim=True)
+    var = (mu2 - mu * mu).clamp_min(0.0)
+    y = (xf - mu) * (torch.rsqrt(var + eps) * weight.float())
+    return (y + bias.float()).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,6 +390,7 @@ def block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale,
     return out.view(BW, N, C)
 
 
+@launches.counted
 @span("kvq.k1")
 def fused_swin_block(x, params, rel_bias, frag_bias, geo: WindowGeometry,
                      scale=None):
@@ -409,9 +423,6 @@ def fused_swin_block(x, params, rel_bias, frag_bias, geo: WindowGeometry,
     return out
 
 
-fused_swin_block.launches = 0
-
-
 def _rows(name, key, t, X, L, C):
     if t.dim() != 3 or tuple(t.shape) != (X, L, C):
         raise ValueError(f"{name}: {key} is {tuple(t.shape)}, expected "
@@ -424,6 +435,7 @@ def _rows(name, key, t, X, L, C):
     return t.stride(1)
 
 
+@launches.counted
 @span("kvq.k2")
 def flash_attention_nobias_cl(q, k, v, num_heads: int, scale=None):
     """K2.  q (X, N, C), k/v (X, M, C) -> (X, N, C); heads split along C.
@@ -462,8 +474,6 @@ def flash_attention_nobias_cl(q, k, v, num_heads: int, scale=None):
     flash_attention_nobias_cl.launches += 1
     return out
 
-
-flash_attention_nobias_cl.launches = 0
 
 _MAX_GRID_Z = 65535  # the kernels put (window or batch entry) on grid z
 
@@ -516,6 +526,7 @@ def _head_major_strides(name, **tensors):
     return (ctypes.c_longlong * len(out))(*out)
 
 
+@launches.counted
 @span("kvq.k3")
 def flash_window_attention_packed(qkv, rel_bias, frag_bias,
                                   geo: WindowGeometry, scale=None):
@@ -555,9 +566,7 @@ def flash_window_attention_packed(qkv, rel_bias, frag_bias,
     return out
 
 
-flash_window_attention_packed.launches = 0
-
-
+@launches.counted
 @span("kvq.k6")
 def flash_window_attention(q, k, v, rel_bias, frag_bias, geo: WindowGeometry,
                            scale=None):
@@ -598,9 +607,7 @@ def flash_window_attention(q, k, v, rel_bias, frag_bias, geo: WindowGeometry,
     return out
 
 
-flash_window_attention.launches = 0
-
-
+@launches.counted
 @span("kvq.k7")
 def flash_attention_nobias(q, k, v, scale=None):
     """K7, K2 on head-major tensors: q (X, h, N, hd), k/v (X, h, M, hd),
@@ -632,6 +639,3 @@ def flash_attention_nobias(q, k, v, scale=None):
         ), name)
     flash_attention_nobias.launches += 1
     return out
-
-
-flash_attention_nobias.launches = 0

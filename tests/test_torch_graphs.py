@@ -1,4 +1,5 @@
-"""KSVQE's eval forward replayed as two CUDA graphs (nn/eval_graphs.py).
+"""KSVQE's eval forward replayed as two CUDA graphs (nn/eval_graphs.py, the
+eval capture of the graph mechanism).
 
 On the CPU: the rule that decides where the graphs engage, the captures'
 bookkeeping (one per input signature, dropped when the module's tensors
@@ -20,6 +21,7 @@ from kvq_tpu_torch.core import tracing
 from kvq_tpu_torch.models.vqa_network import build_model
 from kvq_tpu_torch.nn import eval_graphs as EG
 from kvq_tpu_torch.nn.regionnet import RegionSelector
+from kvq_tpu_torch.ops import launches
 from kvq_tpu_torch.ops import window_attention as WA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,7 +77,7 @@ def test_graphs_engage_only_where_the_rule_says(case, engages, monkeypatch):
     if case == "disabled":
         monkeypatch.setattr(EG, "_ENABLED", False)
     with torch.set_grad_enabled(case == "grad"):
-        assert EG.EvalGraphs.engages(net, batch) is engages
+        assert (EG.engages(net, batch) == "eval") is engages
 
 
 @pytest.mark.parametrize("change,recaptured,kept", [
@@ -88,11 +90,11 @@ def test_captures_follow_signature_and_tensors(change, recaptured, kept,
     capture and the next forward captures anew.  A module's captures share
     one memory pool, opened anew once every capture was dropped."""
     made = []
-    monkeypatch.setattr(EG.Capture, "_capture",
+    monkeypatch.setattr(EG.EvalCapture, "_capture",
                         lambda self, net, pool: made.append((self, pool)))
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
     net = _tiny_model().KSVQE_backbone
-    graphs, batch = EG.EvalGraphs(), _tiny_batch()
+    graphs, batch = EG.Graphs(EG.EvalCapture), _tiny_batch()
     first = graphs.capture_for(net, batch)
     assert first.holds() and [c for c, _ in made] == [first]
     if change == "signature":
@@ -187,7 +189,8 @@ def _observe(model, batches, graphs, monkeypatch):
 
 
 def _capture(model, batch):
-    return model.KSVQE_backbone._graphs._captures[EG.signature(batch)]
+    return model.KSVQE_backbone._graphs["eval"]._captures[
+        EG.signature(batch)]
 
 
 @pytest.fixture(scope="module")
@@ -230,7 +233,7 @@ def test_plain_path_graphed_forward_is_bit_equal_to_eager(shipped):
     mp = pytest.MonkeyPatch()
     (es, ef, ep) = _observe(plain, batches, False, mp)
     (gs, gf, gp) = _observe(plain, batches, True, mp)
-    assert list(plain.KSVQE_backbone._graphs._captures) == [
+    assert list(plain.KSVQE_backbone._graphs["eval"]._captures) == [
         EG.signature(batches[0])]
     for i in range(3):
         assert _equal(gs[i], es[i]), i
@@ -253,10 +256,6 @@ def test_hooks_see_fresh_tensors_of_each_forward(observed):
     assert not set(kept) & static
 
 
-def _kernel_calls():
-    return [f.launches for f in EG.COUNTED]
-
-
 @pytest.mark.cuda
 def test_replays_count_the_captured_kernel_calls(shipped, observed):
     """K1 12 and K2 9 a replay, as an eager forward counts them."""
@@ -266,15 +265,20 @@ def test_replays_count_the_captured_kernel_calls(shipped, observed):
         for graphs in (False, True, True):
             EG._ENABLED = graphs
             try:
-                before = _kernel_calls()
+                before = launches.snapshot()
                 model(batches[0], reduce_scores=True)
             finally:
                 EG._ENABLED = True
-            counts.append([a - b for a, b in zip(_kernel_calls(), before)])
-    want = [0] * len(EG.COUNTED)
-    want[EG.COUNTED.index(WA.fused_swin_block)] = 12
-    want[EG.COUNTED.index(WA.flash_attention_nobias_cl)] = 9
-    assert counts == [want] * 3
+            counts.append(launches.diff(before, launches.snapshot()))
+    assert counts == [_calls(12, 9)] * 3
+
+
+def _calls(k1, k2) -> list:
+    """The ledger's counts with ``k1`` K1 and ``k2`` K2 calls, no other."""
+    want = [0] * len(launches.NAMES)
+    want[launches.wrappers().index(WA.fused_swin_block)] = k1
+    want[launches.wrappers().index(WA.flash_attention_nobias_cl)] = k2
+    return want
 
 
 def _scores(model, batches, graphs):
@@ -321,15 +325,12 @@ def test_replaced_tensors_cause_a_new_capture(shipped, observed):
     cap = _capture(model, batches[0])
     model.load_state_dict({k: v.clone() for k, v in
                            model.state_dict().items()}, assign=True)
-    before = _kernel_calls()
+    before = launches.snapshot()
     graphed = _scores(model, batches, True)
-    counted = [a - b for a, b in zip(_kernel_calls(), before)]
+    counted = launches.diff(before, launches.snapshot())
     assert _capture(model, batches[0]) is not cap
-    want = [0] * len(EG.COUNTED)
-    want[EG.COUNTED.index(WA.fused_swin_block)] = 12 * 3
-    want[EG.COUNTED.index(WA.flash_attention_nobias_cl)] = 9 * 3
-    assert counted == want
-    assert len(model.KSVQE_backbone._graphs._captures) == 1
+    assert counted == _calls(12 * 3, 9 * 3)
+    assert len(model.KSVQE_backbone._graphs["eval"]._captures) == 1
     eager = _scores(model, batches, False)
     assert all(_equal(g, e) for g, e in zip(graphed, eager))
 

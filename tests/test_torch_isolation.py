@@ -48,6 +48,22 @@ def test_no_jax_and_no_reference_package(path):
             assert not top, f"{path}: imports {name} at module level"
 
 
+@pytest.mark.parametrize("path", sorted((PORT / "ops").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_kernels_import_nothing_of_the_model_layer(path):
+    """``ops/`` lies below ``nn/``: no kernel module imports the models."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.ImportFrom):
+            names = ["." * node.level + (node.module or "")]
+        elif isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        else:
+            continue
+        for name in names:
+            assert not name.startswith(("..nn", "kvq_tpu_torch.nn")), (
+                f"{path}: imports {name}")
+
+
 def test_importing_every_module_builds_nothing():
     """Import every module with the compiler and the library loader
     disabled: any build or load at import would raise."""

@@ -1,5 +1,6 @@
-"""KSVQE's train step replayed as CUDA graphs (nn/train_graphs.py) on the
-Trainer's persistent compute copies (train/trainer.py).
+"""KSVQE's train step replayed as CUDA graphs (nn/train_graphs.py, the train
+capture of nn/eval_graphs.py's mechanism) on the Trainer's persistent
+compute copies (train/trainer.py).
 
 On the CPU: the persistent copies against the casts the Trainer made anew
 every step (bit for bit, a tiny KSVQE and a tiny ``swin_tiny_grpb`` in
@@ -29,9 +30,10 @@ import torch
 from kvq_tpu_torch.models import vqa_network as VN
 from kvq_tpu_torch.models.vqa_network import (build_train_model,
                                               tensor_compute_dtype)
+from kvq_tpu_torch.nn import eval_graphs as EG
 from kvq_tpu_torch.nn import train_graphs as TG
 from kvq_tpu_torch.nn.regionnet import RegionSelector
-from kvq_tpu_torch.ops import train_attention as TA
+from kvq_tpu_torch.ops import launches
 from kvq_tpu_torch.train.trainer import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -171,7 +173,7 @@ def test_train_graphs_engage_and_capture_where_the_rule_says(
     capture from then on; tensors new every step (as the (data, fsdp)
     step's) never capture."""
     made = []
-    monkeypatch.setattr(TG.Capture, "_capture",
+    monkeypatch.setattr(TG.TrainCapture, "_capture",
                         lambda self, net, pool: made.append(self))
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
     net = _tiny_backbone()
@@ -188,10 +190,10 @@ def test_train_graphs_engage_and_capture_where_the_rule_says(
     seen = batch if case == "cpu" else {
         **batch, "fragment": types.SimpleNamespace(is_cuda=True)}
     with torch.set_grad_enabled(case != "no_autograd"):
-        assert TG.TrainGraphs.engages(net, seen) is engages
+        assert (EG.engages(net, seen) == "train") is engages
     if not engages:
         return
-    graphs, got = TG.TrainGraphs(), []
+    graphs, got = EG.Graphs(TG.TrainCapture), []
     for _ in range(3):
         if case == "new_tensors_every_step":
             net.load_state_dict({k: v.clone() for k, v in
@@ -235,11 +237,6 @@ def test_graphed_draws_follow_the_eager_order():
 
 # --------------------------------------------------------------- the card
 
-COUNTED = {"k4": TA.train_swin_block, "k4_bwd": TA.train_swin_block_bwd,
-           "k5": TA.window_attention_train,
-           "k5_bwd": TA.window_attention_train_bwd}
-
-
 def _shipped_config(use_pallas=True) -> dict:
     with open(os.path.join(REPO, "portbench", "configs", "ksvqe.json")) as f:
         c = json.load(f)
@@ -264,7 +261,7 @@ def _observe(cfg, batches, graphs):
     calls and generator state, the head's input of step 1 (a pre-hook, no
     copy), QRS's (cls_attn, pick) of each step (``select`` patched, no
     copy), then the state after three."""
-    TG._ENABLED = graphs
+    EG._ENABLED = graphs
     feats, picks, losses, calls, gens = [], [], [], [], []
     orig = RegionSelector.select
 
@@ -278,19 +275,19 @@ def _observe(cfg, batches, graphs):
         hook = tr.model.KSVQE_head.register_forward_pre_hook(
             lambda m, args: feats.append(args[0]))
         for b in batches:
-            before = {k: f.launches for k, f in COUNTED.items()}
+            before = launches.snapshot()
             losses.append(tr.train_step(b))
-            calls.append({k: f.launches - before[k]
-                          for k, f in COUNTED.items()})
+            calls.append(dict(zip(launches.NAMES, launches.diff(
+                before, launches.snapshot()))))
             gens.append(tr.gen.get_state())
             if len(gens) == 1:
                 grads1 = [p.grad.clone() for p in _trained(tr)]
         hook.remove()
     finally:
         RegionSelector.select = orig
-        TG._ENABLED = True
+        EG._ENABLED = True
     torch.cuda.synchronize()
-    caps = tr.model.KSVQE_backbone._train_graphs._captures
+    caps = tr.model.KSVQE_backbone._graphs["train"]._captures
     return {"losses": losses, "feats": feats, "picks": picks,
             "calls": calls, "gens": gens, "state": _state(tr),
             "grads1": grads1, "names": [n for n, p in tr.model.named_parameters()
@@ -383,8 +380,10 @@ def test_observers_get_fresh_tensors(runs):
 @pytest.mark.cuda
 def test_replayed_steps_count_the_kernel_calls(runs):
     """K4 10 forward and 10 backward calls a step, K5 2 and 2, graphed or
-    eager: the capture's own calls are not counted."""
-    want = {"k4": 10, "k4_bwd": 10, "k5": 2, "k5_bwd": 2}
+    eager, and no other kernel: the capture's own calls are not counted."""
+    want = dict.fromkeys(launches.NAMES, 0)
+    want.update(train_swin_block=10, train_swin_block_bwd=10,
+                window_attention_train=2, window_attention_train_bwd=2)
     for r in runs:
         assert r["calls"] == [want] * 3
 
