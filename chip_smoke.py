@@ -585,10 +585,11 @@ def k4_case(k4f, k4b, tag, stage, shifted, gen, stages, window, batch, reps,
     dout = torch.randn(x.shape, generator=gen, device="cuda").to(
         torch.bfloat16)
     args = (x, params, rel, frag, geo, scale, dp1, dp2)
-    out = TA.train_swin_block_fwd(*args)
-    ref = fused_swin_block_plain(*args)
-    dx, g, drel, dfrag = TA.train_swin_block_bwd(*args, dout)
-    rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(*args, dout)
+    out, kept = TA.train_swin_block_fwd(*args, keep=True)
+    ref, rkept = fused_swin_block_plain(*args, keep=True)
+    dx, g, drel, dfrag = TA.train_swin_block_bwd(*args, kept, dout)
+    rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(*args, rkept,
+                                                           dout)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = K1_TOL * max(1.0, ref.float().abs().max().item())
@@ -602,18 +603,20 @@ def k4_case(k4f, k4b, tag, stage, shifted, gen, stages, window, batch, reps,
     for k in g:
         gerr[k] = _grad_err(f"{tag} {k}", g[k].reshape(rg[k].shape), rg[k])
     del out, ref, dx, g, drel, dfrag, rdx, rg, rdrel, rdfrag
-    ms_f = cuda_ms(lambda: TA.train_swin_block_fwd(*args), 10)
+    ms_f = cuda_ms(lambda: TA.train_swin_block_fwd(*args, keep=True), 10)
     pms_f = cuda_ms(lambda: fused_swin_block_plain(*args), 3)
-    ms_b = cuda_ms(lambda: TA.train_swin_block_bwd(*args, dout), 5)
-    pms_b = cuda_ms(lambda: TA.train_swin_block_bwd_plain(*args, dout), 2)
+    ms_b = cuda_ms(lambda: TA.train_swin_block_bwd(*args, kept, dout), 5)
+    pms_b = cuda_ms(lambda: TA.train_swin_block_bwd_plain(*args, rkept,
+                                                          dout), 2)
     planes = (1 + int(frag is not None)) * h * N * N * 4
     w = 12 * C * C
     by_f = 2 * BW * N * C * 2 + w * 2 + planes + 2 * BW * 4
     by_b = 3 * BW * N * C * 2 + w * 2 + w * 4 + 2 * planes + 2 * BW * 4
     bf, byf = bound_ms(by_f, flops)
-    bb, byb = bound_ms(by_b, 3 * flops)
+    # the backward's products are twice the forward's; it runs no forward
+    bb, byb = bound_ms(by_b, 2 * flops)
     _add(k4f, reps, ms_f, pms_f, by_f, flops, err)
-    _add(k4b, reps, ms_b, pms_b, by_b, 3 * flops, max(gerr.values()))
+    _add(k4b, reps, ms_b, pms_b, by_b, 2 * flops, max(gerr.values()))
     k4f["rows"].append((stage, geo.shift, BW, C, err, ms_f, pms_f, bf, byf))
     k4b["rows"].append((stage, geo.shift, BW, C, gerr, ms_b, pms_b, bb, byb))
     print(f"{tag} BW={BW} N={N} C={C}: forward max|d|={err:.4g} (tol "
@@ -622,7 +625,7 @@ def k4_case(k4f, k4b, tag, stage, shifted, gen, stages, window, batch, reps,
           f"{json.dumps({k: float(f'{v:.3g}') for k, v in gerr.items()})}"
           f" kernel {ms_b:.4f} ms, plain {pms_b:.4f} ms, bound "
           f"{bb:.4f} ms ({byb}); {card}", flush=True)
-    del args, x, params, dout
+    del args, x, params, dout, kept, rkept
     torch.cuda.empty_cache()
 
 
@@ -747,7 +750,7 @@ def swin_train_kernel_phase(card: str):
 
 # The block's products: (product, N, K, epilogue) of one block of width C in
 # the forward layout; forward epilogues: "bias", "gelu" (fc1), "gelu_pre"
-# (fc1 keeping its pre-activation, K4's recompute), "res" (eval residual),
+# (fc1 keeping its pre-activation for K4's backward), "res" (eval residual),
 # "res_dp" (residual with the DropPath multipliers).
 GEMM_TOL = 2e-2      # bf16 outputs, x max(1, max|reference|)
 GEMM_TOL_F32 = 1e-3  # f32 outputs (dX's f32 epilogue, dW's split-K sums)
@@ -756,9 +759,9 @@ GEMM_TOL_F32 = 1e-3  # f32 outputs (dX's f32 epilogue, dW's split-K sums)
 def gemm_cases():
     """Every product of K1 at the four KSVQE eval stages and of K4 at train
     stages 0-2: (kernel, stage, product, layout, M, N, K, epilogue, calls),
-    with the calls per KSVQE forward (K1) or per train step (K4: qkv and
-    proj run in the forward and in the backward's recompute, fc1 once
-    without and once with its pre-activation kept, fc2 once; dX and dW once
+    with the calls per KSVQE forward (K1) or per train step (K4: each
+    product once a block in the forward, fc1 keeping its pre-activation
+    for the backward, which reads what the forward kept; dX and dW once
     per block).  For dW, M and N are the weight's (out, in) and K the token
     rows."""
     out = []
@@ -773,9 +776,8 @@ def gemm_cases():
         dims, C, _, _ = TRAIN_STAGES[s]
         M, b = TRAIN_B * math.prod(dims), 2 * TRAIN_REPS[s]
         for prod, N, K, epi, calls in (
-                ("qkv", 3 * C, C, "bias", 2 * b),
-                ("proj", C, C, "res_dp", 2 * b),
-                ("fc1", 4 * C, C, "gelu", b),
+                ("qkv", 3 * C, C, "bias", b),
+                ("proj", C, C, "res_dp", b),
                 ("fc1 keep pre", 4 * C, C, "gelu_pre", b),
                 ("fc2", C, 4 * C, "res_dp", b)):
             out.append(("K4 fwd", s, prod, "forward", M, N, K, epi, calls))

@@ -1,5 +1,5 @@
 // The Swin block's products on Hopper (sm_90a): every product of K1, of
-// K4's forward and its recompute, and K4's backward dX and dW (replaces the
+// K4's forward, and K4's backward dX and dW (replaces the
 // jax.lax.dot_general calls of _make_block_kernel and of
 // _make_block_train_bwd_kernel in kvq_tpu/ops/window_attention.py).  One
 // template, gemm_kernel<BN, EPI>, in three layouts (the epilogue EPI sets

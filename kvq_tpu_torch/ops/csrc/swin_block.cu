@@ -12,15 +12,15 @@
 //   h   = GELU(y2 @ Wfc1^T + b)         kvq_gemm, GELU epilogue
 //   out = x1 + dp2 * (h @ Wfc2^T + b)   kvq_gemm, residual epilogue
 //
-// K4's backward recomputes that forward (keeping the fc1 pre-activation and
-// the attention's row log-sum-exp) and runs the products backward on the
-// same GEMM in its other two layouts: dX = dY @ W (kvq_gemm_bwd, A (M, K),
-// B (K, N)) and dW = dY^T @ X (A and B both (K, *), the rows as the
-// reduction axis, split into K ranges over the CTAs and summed with f32
-// atomics, since the master weights are f32).  Column sums (kvq_colsum) give the bias
-// gradients, kvq_layernorm_bwd the LayerNorm input and affine gradients,
-// the GELU derivative is an epilogue, and the attention backward is
-// train_attention.cu.
+// K4's forward keeps its intermediates (the fc1 pre-activation and the
+// attention's row log-sum-exp among them); its backward reads them and runs
+// the products backward on the same GEMM in its other two layouts:
+// dX = dY @ W (kvq_gemm_bwd, A (M, K), B (K, N)) and dW = dY^T @ X (A and
+// B both (K, *), the rows as the reduction axis, split into K ranges over
+// the CTAs and summed with f32 atomics, since the master weights are f32).
+// Column sums (kvq_colsum) give the bias gradients, kvq_layernorm_bwd the
+// LayerNorm input and affine gradients, the GELU derivative is an epilogue,
+// and the attention backward is train_attention.cu.
 //
 // The TPU kernel holds a whole block's weights in VMEM; at stage 3 they are
 // ~14 MB, against 227 KB of shared memory per CTA here, so the block is

@@ -2,7 +2,7 @@
 plan.
 
 Every product of K1 (``fused_swin_block``) and K4 (``train_swin_block``,
-forward, recompute and backward) runs one GEMM, ``csrc/gemm.cuh`` behind
+forward and backward) runs one GEMM, ``csrc/gemm.cuh`` behind
 the C entries ``kvq_gemm`` and ``kvq_gemm_bwd`` of ``csrc/gemm.cu``,
 in three layouts (they replace the ``jax.lax.dot_general`` calls in the
 block kernels of ``kvq_tpu/ops/window_attention.py``):

@@ -9,12 +9,18 @@ card ``csrc/train_attention.cu``.
 
 K4 :func:`train_swin_block` — the whole Swin block for training: the
 forward is K1's kernel sequence with per-window DropPath multipliers on its
-two residual branches; the backward recomputes that forward from the saved
-inputs (as the JAX custom_vjp does: nothing but the inputs is kept) and
-emits dx, the twelve weight/bias/LayerNorm gradients in float32 and the
-bias-plane gradients ``drel = sum ds * gate``, ``dfrag = sum ds * (1 -
-gate)``.  Replaces ``train_swin_block`` (``_block_train_bwd_impl``); on the
-card ``csrc/swin_block.cu`` (products, LayerNorm, column sums) and the
+two residual branches; when a backward can follow it keeps the
+intermediates that backward reads (``KEPT``: y1, qkv, att, the row
+log-sum-exp, x1, y2, the fc1 pre-activation and its GELU), and the
+backward starts from them, with no recompute of the forward.  It emits dx,
+the twelve weight/bias/LayerNorm gradients in float32 and the bias-plane
+gradients ``drel = sum ds * gate``, ``dfrag = sum ds * (1 - gate)``.
+Replaces ``train_swin_block`` (``_block_train_bwd_impl``), whose custom_vjp
+keeps nothing but the inputs and recomputes, a policy for TPU memory that
+the port does not follow: memory against compute is the configuration's
+``checkpoint`` (``nn/swin.py``), whose ``torch.utils.checkpoint`` drops
+the kept tensors and recomputes them itself.  On the card
+``csrc/swin_block.cu`` (products, LayerNorm, column sums) and the
 attention backward of ``csrc/train_attention.cu``.
 
 Each is a ``torch.autograd.Function``.  For tensors on the CPU it runs its
@@ -23,7 +29,8 @@ formulas and rounding points as the kernels; for CUDA tensors it launches
 the kernels or raises.  ``launches`` on the forward and on the backward
 wrapper count the launches of each; the four halves are spans
 (``kvq.k4.fwd``, ``kvq.k4.bwd``, ``kvq.k5.fwd``, ``kvq.k5.bwd``;
-``core/tracing.py``).  The numerics are the XLA
+``core/tracing.py``); a ``kvq.k4.fwd`` that keeps its intermediates
+carries their bytes as ``kept_bytes``.  The numerics are the XLA
 composition's (row-max softmax, exact-erf GELU), not the TPU kernels'
 fold-softmax clamp or polynomial erf.
 """
@@ -31,7 +38,6 @@ fold-softmax clamp or polynomial erf.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..core.tracing import span
 from . import build
@@ -41,10 +47,9 @@ from .gemm import gelu_grad
 from .window_attention import (
     LN_EPS,
     _BLOCK_KEYS,
-    _branch,
+    KEPT,
     _check_cuda,
     _geometry_args,
-    _linear,
     _ptr,
     _stream,
     _windows,
@@ -54,7 +59,6 @@ from .window_attention import (
     flash_window_attention_plain,
     fused_swin_block_plain,
     gate_and_mask,
-    layer_norm,
 )
 
 # ---------------------------------------------------------------------------
@@ -136,26 +140,19 @@ def _heads(t, h):
 
 
 def train_swin_block_bwd_plain(x, params, rel_bias, frag_bias, geo, scale,
-                               dp1, dp2, dout):
+                               dp1, dp2, kept, dout):
     """Plain backward of K4, from the formulas and rounding points of the
-    kernel sequence: recompute the forward, then the products backward
-    (f32 weight gradients from the rounded operands), the GELU derivative,
-    the LayerNorm backward, and K5's attention backward.  Returns (dx,
-    {key: grad}, drel, dfrag)."""
+    kernel sequence, starting from ``kept`` (the plain forward's, under
+    ``KEPT``): the products backward (f32 weight gradients from the rounded
+    operands), the GELU derivative, the LayerNorm backward, and K5's
+    attention backward.  Returns (dx, {key: grad}, drel, dfrag)."""
     dt = x.dtype
     BW, N, C = x.shape
     h = geo.num_heads
     p = params
-    y1 = layer_norm(x, p["norm1_scale"], p["norm1_bias"])
-    qkv = _linear(y1, p["qkv_w"], p["qkv_b"])
+    y1, qkv, att, x1, y2, pre, g1 = (
+        kept[k] for k in ("y1", "qkv", "att", "x1", "y2", "pre", "hmid"))
     q, k, v = (_heads(t, h).contiguous() for t in qkv.split(C, dim=-1))
-    att_h = window_attention_train_plain(q, k, v, rel_bias, frag_bias, geo,
-                                         scale)
-    att = att_h.transpose(1, 2).reshape(BW, N, C)
-    x1 = x + _branch(_linear(att, p["proj_w"], p["proj_b"]), dp1)
-    y2 = layer_norm(x1, p["norm2_scale"], p["norm2_bias"])
-    pre = _linear(y2, p["fc1_w"], p["fc1_b"])
-    g1 = F.gelu(pre)
 
     rs1 = dp1.float()[:, None, None]
     rs2 = dp2.float()[:, None, None]
@@ -177,7 +174,8 @@ def train_swin_block_bwd_plain(x, params, rel_bias, frag_bias, geo, scale,
     g["proj_w"] = _rows(dattd).T @ _rows(att)
     dao = (dattd.float() @ p["proj_w"].float()).to(dt)
     dq, dk, dv, drel, dfrag = window_attention_train_bwd_plain(
-        q, k, v, rel_bias, frag_bias, geo, scale, att_h, _heads(dao, h))
+        q, k, v, rel_bias, frag_bias, geo, scale, _heads(att, h),
+        _heads(dao, h))
     dqkv = torch.cat([t.transpose(1, 2).reshape(BW, N, C)
                       for t in (dq, dk, dv)], dim=-1)
     g["qkv_b"] = _rows(dqkv).sum(0)
@@ -317,37 +315,53 @@ def _dp(dp, BW, device):
     return dp
 
 
-@span("kvq.k4.fwd")
+def kept_bytes(x, params, geo) -> int:
+    """The bytes K4's forward keeps for its backward at ``x``: six (M, C)
+    or (M, 3C) activations and two (M, hidden) in x's dtype, and on CUDA
+    the (BW, h, N) float32 row log-sum-exp."""
+    BW, N, C = x.shape
+    hidden = params["fc1_w"].shape[0]
+    lse = 4 * BW * geo.num_heads * N if x.device.type == "cuda" else 0
+    return x.element_size() * BW * N * (7 * C + 2 * hidden) + lse
+
+
 def train_swin_block_fwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
-                         dp2):
-    """K4's forward (the plain version on the CPU)."""
-    if x.device.type == "cpu":
-        return fused_swin_block_plain(x, params, rel_bias, frag_bias, geo,
-                                      scale, dp1, dp2)
-    if x.device.type != "cuda":
-        raise ValueError(f"train_swin_block: unsupported device {x.device}")
-    check_block_args("train_swin_block", x, params, rel_bias, frag_bias, geo)
-    if geo.head_dim != 32:
-        raise ValueError("train_swin_block: the backward kernel takes "
-                         "head_dim 32, the head_dim of every stage")
-    out = block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale,
-                             dp1, dp2)
-    train_swin_block.launches += 1
-    return out
+                         dp2, keep=False):
+    """K4's forward (the plain version on the CPU); with ``keep`` (out,
+    kept), the intermediates its backward reads under ``KEPT``, and the
+    span carries their ``kept_bytes``."""
+    attrs = {"kept_bytes": kept_bytes(x, params, geo)} if keep else {}
+    with span("kvq.k4.fwd", **attrs):
+        if x.device.type == "cpu":
+            return fused_swin_block_plain(x, params, rel_bias, frag_bias,
+                                          geo, scale, dp1, dp2, keep)
+        if x.device.type != "cuda":
+            raise ValueError(f"train_swin_block: unsupported device "
+                             f"{x.device}")
+        check_block_args("train_swin_block", x, params, rel_bias, frag_bias,
+                         geo)
+        if geo.head_dim != 32:
+            raise ValueError("train_swin_block: the backward kernel takes "
+                             "head_dim 32, the head_dim of every stage")
+        out = block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale,
+                                 dp1, dp2, keep)
+        train_swin_block.launches += 1
+        return out
 
 
 @launches.counted
 @span("kvq.k4.bwd")
 def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
-                         dp2, dout):
-    """K4's backward: (dx, {key: f32 grad}, drel, dfrag); the kernel
-    sequence on CUDA, the plain version on the CPU."""
+                         dp2, kept, dout):
+    """K4's backward from ``kept``, what the forward kept under ``KEPT``:
+    (dx, {key: f32 grad}, drel, dfrag); the kernel sequence on CUDA, the
+    plain version on the CPU."""
     if x.device.type == "cpu":
         return train_swin_block_bwd_plain(x, params, rel_bias, frag_bias,
-                                          geo, scale, dp1, dp2, dout)
+                                          geo, scale, dp1, dp2, kept, dout)
     check_block_args("train_swin_block_bwd", x, params, rel_bias, frag_bias,
                      geo)
-    _check_cuda("train_swin_block_bwd", x.device, dout=dout)
+    _check_cuda("train_swin_block_bwd", x.device, dout=dout, **kept)
     if dout.dtype != torch.bfloat16:
         raise TypeError("train_swin_block_bwd: dout must be bfloat16")
     BW, N, C = x.shape
@@ -405,34 +419,32 @@ def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
 
     g = {}
     with torch.cuda.device(dev):
-        fw = block_forward_cuda(x, p, rel_bias, frag_bias, geo, scale, dp1,
-                                dp2, keep=True)
         dout = dout.reshape(M, C)
         g["fc2_b"] = colsum(dout, dp2)
         dm2 = torch.empty((M, C), dtype=bf, device=dev)
         build.check(lib.kvq_scale_rows(_ptr(dout), _ptr(dp2), N, _ptr(dm2),
                                        M, C, stream),
                     "train_swin_block scale rows")
-        g["fc2_w"] = weight_grad(dm2, fw["hmid"], C, hidden)
+        g["fc2_w"] = weight_grad(dm2, kept["hmid"], C, hidden)
         dh1 = input_grad(dm2, p["fc2_w"], hidden, C, gemm_ops.EPI_GELU_BWD,
-                         fw["pre"])
+                         kept["pre"])
         g["fc1_b"] = colsum(dh1)
-        g["fc1_w"] = weight_grad(dh1, fw["y2"], hidden, C)
+        g["fc1_w"] = weight_grad(dh1, kept["y2"], hidden, C)
         dy2 = input_grad(dh1, p["fc1_w"], C, hidden, gemm_ops.EPI_F32)
         dx1, g["norm2_scale"], g["norm2_bias"], datt = ln_bwd(
-            fw["x1"], p["norm2_scale"], dy2, dout, f32, dp1)
+            kept["x1"], p["norm2_scale"], dy2, dout, f32, dp1)
         g["proj_b"] = colsum(dx1, dp1)
-        g["proj_w"] = weight_grad(datt, fw["att"], C, C)
+        g["proj_w"] = weight_grad(datt, kept["att"], C, C)
         dao = input_grad(datt, p["proj_w"], C, C, gemm_ops.EPI_BF16)
         dqkv = torch.empty((M, 3 * C), dtype=bf, device=dev)
         drel = torch.zeros_like(rel_bias)
         dfrag = None if frag_bias is None else torch.zeros_like(frag_bias)
-        qkv, dq, el = fw["qkv"].data_ptr(), dqkv.data_ptr(), 2 * C
-        _attention_bwd_cuda(qkv, qkv + el, qkv + 2 * el, fw["att"], dao,
-                            fw["lse"], rel_bias, frag_bias, geo, scale, True,
+        qkv, dq, el = kept["qkv"].data_ptr(), dqkv.data_ptr(), 2 * C
+        _attention_bwd_cuda(qkv, qkv + el, qkv + 2 * el, kept["att"], dao,
+                            kept["lse"], rel_bias, frag_bias, geo, scale, True,
                             (dq, dq + el, dq + 2 * el, drel, dfrag))
         g["qkv_b"] = colsum(dqkv)
-        g["qkv_w"] = weight_grad(dqkv, fw["y1"], 3 * C, C)
+        g["qkv_w"] = weight_grad(dqkv, kept["y1"], 3 * C, C)
         dy1 = input_grad(dqkv, p["qkv_w"], C, 3 * C, gemm_ops.EPI_F32)
         dx, g["norm1_scale"], g["norm1_bias"], _ = ln_bwd(
             x, p["norm1_scale"], dy1, dx1, bf)
@@ -442,25 +454,33 @@ def train_swin_block_bwd(x, params, rel_bias, frag_bias, geo, scale, dp1,
 
 class _TrainSwinBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, rel_bias, frag_bias, dp1, dp2, geo, scale, *weights):
+    def forward(ctx, x, rel_bias, frag_bias, dp1, dp2, geo, scale, keep,
+                *weights):
         params = dict(zip(_BLOCK_KEYS, weights))
+        if not keep:  # no backward can follow: nothing to keep
+            return train_swin_block_fwd(x, params, rel_bias, frag_bias, geo,
+                                        scale, dp1, dp2)
+        out, kept = train_swin_block_fwd(x, params, rel_bias, frag_bias,
+                                         geo, scale, dp1, dp2, keep=True)
         ctx.geo, ctx.scale = geo, scale
-        ctx.save_for_backward(x, rel_bias, frag_bias, dp1, dp2, *weights)
-        return train_swin_block_fwd(x, params, rel_bias, frag_bias, geo,
-                                    scale, dp1, dp2)
+        ctx.save_for_backward(x, rel_bias, frag_bias, dp1, dp2, *weights,
+                              *(kept[k] for k in KEPT))
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        x, rel, frag, dp1, dp2, *weights = ctx.saved_tensors
+        x, rel, frag, dp1, dp2, *rest = ctx.saved_tensors
+        weights = rest[:len(_BLOCK_KEYS)]
+        kept = dict(zip(KEPT, rest[len(_BLOCK_KEYS):]))
         params = dict(zip(_BLOCK_KEYS, weights))
         dx, g, drel, dfrag = train_swin_block_bwd(
-            x, params, rel, frag, ctx.geo, ctx.scale, dp1, dp2,
+            x, params, rel, frag, ctx.geo, ctx.scale, dp1, dp2, kept,
             dout.contiguous())
         dw = [g[k].reshape(w.shape).to(w.dtype)
               for k, w in zip(_BLOCK_KEYS, weights)]
         return (dx, drel.to(rel.dtype),
                 None if frag is None else dfrag.to(frag.dtype),
-                None, None, None, None, *dw)
+                None, None, None, None, None, *dw)
 
 
 @launches.counted
@@ -481,5 +501,9 @@ def train_swin_block(x, params, rel_bias, frag_bias, geo, dp1, dp2,
                          "when geo.use_frag")
     scale = geo.head_dim ** -0.5 if scale is None else float(scale)
     dp1, dp2 = _dp(dp1, BW, x.device), _dp(dp2, BW, x.device)
+    weights = [params[k] for k in _BLOCK_KEYS]
+    keep = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, rel_bias, frag_bias, *weights))
     return _TrainSwinBlock.apply(x, rel_bias, frag_bias, dp1, dp2, geo,
-                                 scale, *(params[k] for k in _BLOCK_KEYS))
+                                 scale, keep, *weights)

@@ -202,23 +202,35 @@ def _linear(x, w, b):
     return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
+# the intermediates K4's forward keeps for its backward, in this order
+KEPT = ("y1", "qkv", "att", "lse", "x1", "y2", "pre", "hmid")
+
+
 def fused_swin_block_plain(x, params, rel_bias, frag_bias, geo, scale=None,
-                           dp1=None, dp2=None):
+                           dp1=None, dp2=None, keep=False):
     """Plain version of K1 (and of K4's forward, given the (BW,) DropPath
     multipliers ``dp1``/``dp2``): SwinBlock3D's XLA path on (BW, N, C)
     partitioned, rolled tokens.  ``params`` holds the block's weights under
     the JAX kernel's keys (norm1_scale, qkv_w, ...), each weight in
     nn.Linear's (out, in) layout.  Each branch is rounded to x's dtype,
-    scaled by its multiplier and rounded again, as the kernels do."""
+    scaled by its multiplier and rounded again, as the kernels do.  With
+    ``keep`` it returns (out, kept) as :func:`block_forward_cuda` does;
+    the plain attention backward needs no log-sum-exp, so ``lse`` is
+    None."""
     scale = geo.head_dim ** -0.5 if scale is None else scale
-    y = layer_norm(x, params["norm1_scale"], params["norm1_bias"])
-    qkv = _linear(y, params["qkv_w"], params["qkv_b"])
+    y1 = layer_norm(x, params["norm1_scale"], params["norm1_bias"])
+    qkv = _linear(y1, params["qkv_w"], params["qkv_b"])
     att = flash_window_attention_packed_plain(qkv, rel_bias, frag_bias, geo,
                                               scale)
     x1 = x + _branch(_linear(att, params["proj_w"], params["proj_b"]), dp1)
     y2 = layer_norm(x1, params["norm2_scale"], params["norm2_bias"])
-    hmid = F.gelu(_linear(y2, params["fc1_w"], params["fc1_b"]))
-    return x1 + _branch(_linear(hmid, params["fc2_w"], params["fc2_b"]), dp2)
+    pre = _linear(y2, params["fc1_w"], params["fc1_b"])
+    hmid = F.gelu(pre)
+    out = x1 + _branch(_linear(hmid, params["fc2_w"], params["fc2_b"]), dp2)
+    if keep:
+        return out, dict(y1=y1, qkv=qkv, att=att, lse=None, x1=x1, y2=y2,
+                         pre=pre, hmid=hmid)
+    return out
 
 
 def _branch(y, dp):
@@ -339,9 +351,12 @@ def block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale,
                        dp1=None, dp2=None, keep=False):
     """The block's forward as this repository's CUDA kernels (K1, and K4
     with the DropPath multipliers ``dp1``/``dp2`` of shape (BW,) f32).
-    With ``keep`` it returns the intermediates K4's backward needs: y1,
-    qkv, att, the attention's row log-sum-exp, x1, y2, the fc1
-    pre-activation and its GELU.  Arguments are checked by the caller."""
+    With ``keep`` (K4's forward when a backward can follow) it returns
+    (out, kept): the output and the intermediates K4's backward reads,
+    ``{name: tensor}`` under ``KEPT``: y1, qkv, att, the attention's row
+    log-sum-exp, x1, y2, the fc1 pre-activation and its GELU.  Of these
+    only the log-sum-exp and the pre-activation are written for the
+    backward alone.  Arguments are checked by the caller."""
     BW, N, C = x.shape
     h = geo.num_heads
     dev = x.device
@@ -383,11 +398,12 @@ def block_forward_cuda(x, params, rel_bias, frag_bias, geo, scale,
                if keep else None)
         hmid = gemm(y2, p["fc1_w"], p["fc1_b"], None, hidden, C, True,
                     pre=pre)
-        if keep:
-            return dict(y1=y1, qkv=qkv, att=att, lse=lse, x1=x1, y2=y2,
-                        pre=pre, hmid=hmid)
         out = gemm(hmid, p["fc2_w"], p["fc2_b"], x1, C, hidden, False, dp2)
-    return out.view(BW, N, C)
+    out = out.view(BW, N, C)
+    if keep:
+        return out, dict(y1=y1, qkv=qkv, att=att, lse=lse, x1=x1, y2=y2,
+                         pre=pre, hmid=hmid)
+    return out
 
 
 @launches.counted

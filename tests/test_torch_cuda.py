@@ -155,16 +155,17 @@ def test_train_swin_block_kernels_match_plain(cuda, dims, window, shift,
     dout = torch.randn(x.shape, generator=torch.Generator(device=cuda)
                        .manual_seed(3), device=cuda).to(bf)
     before = (TA.train_swin_block.launches, TA.train_swin_block_bwd.launches)
-    out = TA.train_swin_block_fwd(x, params, rel, frag, geo, scale, dp1, dp2)
+    out, kept = TA.train_swin_block_fwd(x, params, rel, frag, geo, scale,
+                                        dp1, dp2, keep=True)
     dx, g, drel, dfrag = TA.train_swin_block_bwd(x, params, rel, frag, geo,
-                                                 scale, dp1, dp2, dout)
+                                                 scale, dp1, dp2, kept, dout)
     torch.cuda.synchronize()
     assert (TA.train_swin_block.launches, TA.train_swin_block_bwd.launches) \
         == (before[0] + 1, before[1] + 1)
-    ref = TWA.fused_swin_block_plain(x, params, rel, frag, geo, scale, dp1,
-                                     dp2)
+    ref, rkept = TWA.fused_swin_block_plain(x, params, rel, frag, geo, scale,
+                                            dp1, dp2, keep=True)
     rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(
-        x, params, rel, frag, geo, scale, dp1, dp2, dout)
+        x, params, rel, frag, geo, scale, dp1, dp2, rkept, dout)
     tol = 3e-2 * max(1.0, ref.float().abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= tol
     _grad_close("dx", dx, rdx)
@@ -174,6 +175,152 @@ def test_train_swin_block_kernels_match_plain(cuda, dims, window, shift,
     for k in g:
         assert g[k].dtype == torch.float32
         _grad_close(k, g[k].reshape(rg[k].shape), rg[k])
+
+
+def _k4_case(cuda, dims, window, shift, use_frag, C, h):
+    """A K4 block on the card: (x, params, rel, frag, geo, dp1, dp2,
+    dout), weights, x and the planes as bf16/f32 leaves requiring grad."""
+    x, params, rel, frag, geo = _block_inputs(dims, window, shift, use_frag,
+                                              C=C, h=h)
+    bf = torch.bfloat16
+    x = x.to(cuda, bf).requires_grad_()
+    params = {k: v.to(cuda, bf).requires_grad_() for k, v in params.items()}
+    rel = rel.to(cuda).requires_grad_()
+    frag = None if frag is None else frag.to(cuda).requires_grad_()
+    dp1, dp2 = _multipliers(len(x), 1, cuda), _multipliers(len(x), 2, cuda)
+    dout = torch.randn(x.shape, generator=torch.Generator(device=cuda)
+                       .manual_seed(3), device=cuda).to(bf)
+    return x, params, rel, frag, geo, dp1, dp2, dout
+
+
+def _rel_gap(a, b) -> float:
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+# one bf16 rounding, relative: the least gap two orders of f32 atomics can
+# leave in a gradient rounded to bf16, when the runs that set the yardstick
+# happened to sum in one order
+BF16_ROUNDING = 2.0 ** -8
+
+
+def _agree(name, got, runs):
+    """``got`` within 10x the widest gap between ``runs`` of the sequence it
+    replaces (or one bf16 rounding, where those runs agree bit for bit) of
+    the first run.  Prints both gaps."""
+    ee = max(_rel_gap(a, b) for i, a in enumerate(runs) for b in runs[:i])
+    gap = _rel_gap(got.to(runs[0].dtype), runs[0])
+    print(f"{name}: gap {gap:.3g}, run to run {ee:.3g}")
+    assert gap <= max(10 * ee, BF16_ROUNDING), (name, gap, ee)
+
+
+K4_CASES = [
+    ((8, 14, 14), (4, 7, 7), (2, 3, 3), True, 64, 2),
+    ((8, 28, 28), (8, 7, 7), (4, 3, 3), True, 96, 3),
+    ((2, 14, 21), (1, 7, 7), (0, 3, 3), False, 96, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,window,shift,use_frag,C,h", K4_CASES)
+def test_train_swin_block_backward_from_kept_matches_recompute(
+        cuda, dims, window, shift, use_frag, C, h):
+    """K4's Function, whose backward reads what its forward kept, against
+    the recompute-then-backward sequence it replaced: the block forward
+    again (``block_forward_cuda`` keeping its intermediates), then the
+    backward from those.  The kept tensors and the output equal the
+    recompute's bit for bit (the same arithmetic); dx, the plane and weight
+    gradients agree within 10x the gap between three runs of the recompute
+    sequence (the weight and plane gradients sum with f32 atomics in no
+    fixed order)."""
+    x, params, rel, frag, geo, dp1, dp2, dout = _k4_case(
+        cuda, dims, window, shift, use_frag, C, h)
+    scale = geo.head_dim ** -0.5
+    leaves = [x, rel, *params.values()] + ([frag] if use_frag else [])
+    y = TA.train_swin_block(x, params, rel, frag, geo, dp1, dp2)
+    kept = y.grad_fn.saved_tensors[-len(TA.KEPT):]
+    got = torch.autograd.grad(y, leaves, dout)
+
+    def recompute():
+        with torch.no_grad():
+            out, fw = TWA.block_forward_cuda(x, params, rel, frag, geo,
+                                             scale, dp1, dp2, keep=True)
+            dx, g, drel, dfrag = TA.train_swin_block_bwd(
+                x, params, rel, frag, geo, scale, dp1, dp2, fw, dout)
+        grads = [dx, drel, *(g[k].reshape(params[k].shape)
+                             .to(params[k].dtype) for k in params)]
+        return out, fw, grads + ([dfrag] if use_frag else [])
+
+    runs = [recompute() for _ in range(3)]
+    torch.cuda.synchronize()
+    out, fw, _ = runs[0]
+    assert torch.equal(y.detach(), out)
+    for name, t in zip(TA.KEPT, kept):
+        assert torch.equal(t, fw[name]), name
+    names = ["dx", "drel", *params] + (["dfrag"] if use_frag else [])
+    for i, name in enumerate(names):
+        _agree(name, got[i], [r[2][i] for r in runs])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,window,shift,use_frag,C,h", K4_CASES[:2])
+def test_train_swin_block_kept_bytes_on_the_card(cuda, dims, window, shift,
+                                                 use_frag, C, h):
+    """``kept_bytes`` on the ``kvq.k4.fwd`` span is the bytes of what the
+    Function saved beyond its inputs: the eight intermediates of ``KEPT``,
+    the row log-sum-exp among them."""
+    from kvq_tpu_torch.core import tracing
+
+    x, params, rel, frag, geo, dp1, dp2, _ = _k4_case(
+        cuda, dims, window, shift, use_frag, C, h)
+    with tracing.recording():
+        since = tracing.mark()
+        y = TA.train_swin_block(x, params, rel, frag, geo, dp1, dp2)
+        spans = [s for s in tracing.spans(since) if s["name"] == "kvq.k4.fwd"]
+    inputs = {t.data_ptr() for t in (x, rel, frag, dp1, dp2,
+                                     *params.values()) if t is not None}
+    saved = [t for t in y.grad_fn.saved_tensors
+             if t is not None and t.data_ptr() not in inputs]
+    assert len(saved) == len(TA.KEPT)
+    assert spans[-1]["attrs"]["kept_bytes"] == sum(
+        t.numel() * t.element_size() for t in saved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_frag", [True, False])
+def test_checkpointed_k4_block_matches_unchecked(cuda, use_frag):
+    """A SwinBlock3D stage under ``use_checkpoint=True`` (non-reentrant
+    ``torch.utils.checkpoint``, which drops what K4 kept and recomputes it)
+    gives the gradients of the same stage without: within 10x the gap of
+    three unchecked runs.  Each block's forward runs once a step without
+    remat and twice with it."""
+    from kvq_tpu_torch.nn.swin import BasicLayer
+
+    torch.manual_seed(0)
+    layers = [BasicLayer(64, 2, 2, (4, 7, 7), frag_bias=use_frag,
+                         use_pallas=True, downsample=False,
+                         use_checkpoint=ck).to(cuda, torch.bfloat16).train()
+              for ck in (False, True)]
+    layers[1].load_state_dict(layers[0].state_dict())
+    x = torch.randn(2, 8, 14, 14, 64, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda).to(torch.bfloat16)
+    dy = torch.randn_like(x)
+    runs, forwards = [], []
+    for layer in (layers[1], *[layers[0]] * 3):
+        xi = x.clone().requires_grad_()
+        before = (TA.train_swin_block.launches,
+                  TA.train_swin_block_bwd.launches)
+        layer(xi, gen=torch.Generator(device=cuda).manual_seed(2)).backward(
+            dy)
+        forwards.append((TA.train_swin_block.launches - before[0],
+                         TA.train_swin_block_bwd.launches - before[1]))
+        runs.append([xi.grad] + [p.grad for p in layer.parameters()])
+        layer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    assert forwards == [(4, 2)] + [(2, 2)] * 3
+    names = ["dx"] + [n for n, _ in layers[0].named_parameters()]
+    for i, name in enumerate(names):
+        _agree(name, runs[0][i], [r[i] for r in runs[1:]])
 
 
 def _window_scores_plain(q, k, rel, frag, geo, scale):

@@ -267,15 +267,14 @@ def test_train_swin_block_plain_matches_jax_grad(dims, window, shift,
     params = _torch_params(jp)
     t = dict(rel_bias=torch.from_numpy(rel),
              frag_bias=None if frag is None else torch.from_numpy(frag))
-    out = TTA.train_swin_block_fwd(torch.from_numpy(x), params, **t, geo=geo,
-                                   scale=geo.head_dim ** -0.5,
-                                   dp1=torch.from_numpy(dp1),
-                                   dp2=torch.from_numpy(dp2))
+    out, kept = TTA.train_swin_block_fwd(
+        torch.from_numpy(x), params, **t, geo=geo, scale=geo.head_dim ** -0.5,
+        dp1=torch.from_numpy(dp1), dp2=torch.from_numpy(dp2), keep=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=RTOL)
     dx, g, drel, dfrag = TTA.train_swin_block_bwd(
         torch.from_numpy(x), params, **t, geo=geo, scale=geo.head_dim ** -0.5,
-        dp1=torch.from_numpy(dp1), dp2=torch.from_numpy(dp2),
+        dp1=torch.from_numpy(dp1), dp2=torch.from_numpy(dp2), kept=kept,
         dout=torch.from_numpy(dout))
     _grad_close(dx, rdx, "dx")
     _grad_close(drel, rdrel, "drel")

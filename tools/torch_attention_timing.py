@@ -17,7 +17,8 @@ nine CDM shapes; K5's forward at train stage 3; K1 at KSVQE's four stage
 geometries; K4's forward at train stages 0-2; K5's backward
 (``window_attention_train_bwd``) at the four train stages' shapes and K4's
 (``train_swin_block_bwd``, the packed-qkv layout) at stages 0-2, unshifted
-and shifted.  ``--kernels`` keeps the cases of the kernels it names.  Each
+and shifted: from the intermediates its forward kept, or, in a checkout
+from before K4's forward kept them, with its recompute of the forward.  ``--kernels`` keeps the cases of the kernels it names.  Each
 case is first held against its plain version (chip_smoke's tolerances;
 every gradient of a backward) and fails the run past them.  Each root runs in a process of its own (its kernels build into its
 own ``ops/_build``), in the order given and then reversed (A B B A), and a
@@ -227,6 +228,14 @@ def grad_err(name, got, want, tol):
     return err
 
 
+def _keeps(TA) -> bool:
+    """Whether K4's forward can keep what its backward reads (a checkout
+    from before that recomputes the forward in the backward)."""
+    import inspect
+
+    return "keep" in inspect.signature(TA.train_swin_block_fwd).parameters
+
+
 def _backward_case(smoke, kernel, spec, gen):
     """A backward case at chip_smoke's train shapes (B=4, T=32): (kernel
     gradients, plain gradients, fn, args, bytes, FLOPs, SDPA backward)."""
@@ -274,16 +283,22 @@ def _backward_case(smoke, kernel, spec, gen):
         dp1 = smoke._multipliers(B, geo.n_windows, gen)
         dp2 = smoke._multipliers(B, geo.n_windows, gen)
         dout = torch.randn(x.shape, generator=gen, device="cuda").to(bf)
-        args = (x, params, rel, frag, geo, scale, dp1, dp2, dout)
+        fargs = (x, params, rel, frag, geo, scale, dp1, dp2)
+        if _keeps(TA):  # the backward reads what the forward kept
+            _, kept = TA.train_swin_block_fwd(*fargs, keep=True)
+            _, rkept = WA.fused_swin_block_plain(*fargs, keep=True)
+            args, rargs = (*fargs, kept, dout), (*fargs, rkept, dout)
+        else:  # a checkout whose backward recomputes the forward
+            args = rargs = (*fargs, dout)
         fn = TA.train_swin_block_bwd
         dx, g, drel, dfrag = fn(*args)
-        rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(*args)
+        rdx, rg, rdrel, rdfrag = TA.train_swin_block_bwd_plain(*rargs)
         got = [dx, drel, dfrag] + [g[key].reshape(rg[key].shape) for key in g]
         want = [rdx, rdrel, rdfrag] + [rg[key] for key in g]
         planes = (1 + int(frag is not None)) * h * N * N * 4
         w = 12 * C * C
         nbytes = 3 * BW * N * C * 2 + w * 2 + w * 4 + 2 * planes + 2 * BW * 4
-        flops = 3 * fflops
+        flops = 2 * fflops  # the products backward, no forward
         q, k, v = (torch.randn(BW, h, N, hd, generator=gen, device="cuda")
                    .to(bf) for _ in range(3))
         dout = torch.randn(BW, h, N, hd, generator=gen, device="cuda").to(bf)
@@ -299,6 +314,10 @@ def run_one(root: str, out_path: str, kernels: str, match: str = "") -> None:
     sys.path.insert(0, HERE)
     import chip_smoke as smoke  # this checkout's helpers and shapes
 
+    # chip_smoke imported this checkout's package (its kernel names): drop
+    # it, so that the imports below, and chip_smoke's own, load root's
+    for name in [m for m in sys.modules if m.split(".")[0] == "kvq_tpu_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -410,7 +429,11 @@ def run_one(root: str, out_path: str, kernels: str, match: str = "") -> None:
             dp1 = smoke._multipliers(smoke.TRAIN_B, nW, gen)
             dp2 = smoke._multipliers(smoke.TRAIN_B, nW, gen)
             args = (x, params, rel, frag, geo, geo.head_dim ** -0.5, dp1, dp2)
-            fn, plain = TA.train_swin_block_fwd, WA.fused_swin_block_plain
+            fn = TA.train_swin_block_fwd
+            if _keeps(TA):  # time the forward that training runs
+                fn = lambda *a: TA.train_swin_block_fwd(  # noqa: E731
+                    *a, keep=True)[0]
+            plain = WA.fused_swin_block_plain
             BW, N, C = x.shape
             nbytes = (2 * BW * N * C * 2 + 24 * C * C
                       + (1 + int(frag is not None)) * geo.num_heads * N * N * 4)
